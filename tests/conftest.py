@@ -16,6 +16,11 @@ import pytest
 from repro.core import MemoryObjectStore, Namespace
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA CUDA card; skips where there is none")
+
+
 @pytest.fixture
 def store():
     return MemoryObjectStore()
