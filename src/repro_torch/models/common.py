@@ -154,7 +154,7 @@ def repeat_kv(x: torch.Tensor, n_heads: int) -> torch.Tensor:
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+                    causal: bool = True) -> torch.Tensor:
     """Plain attention; materializes (S, T) scores. The CPU path of
     ``attention``, rounding where the JAX ``dense_attention`` rounds."""
     B, S, H, dh = q.shape
@@ -164,30 +164,21 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = torch.einsum("bshd,bthd->bhst", q, kh).float()
     scores = scores * (1.0 / math.sqrt(dh))
     if causal:
-        qpos = torch.arange(S, device=q.device)[:, None] + q_offset
+        qpos = torch.arange(S, device=q.device)[:, None]
         kpos = torch.arange(T, device=q.device)[None, :]
         scores = torch.where((qpos >= kpos)[None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bhst,bthd->bshd", probs, vh)
 
 
-def attention(q, k, v, causal=True, impl="auto", chunk=1024, q_offset=0):
-    """GQA attention. On CUDA every ``impl`` runs the flash-attention kernel
-    (K1). On the CPU ``impl`` picks as in JAX: "dense" (or "auto" for
-    T <= 4096) is ``dense_attention``; "chunked" and "pallas" compute the
-    same function through K1's plain version."""
-    if impl not in ("auto", "dense", "chunked", "pallas"):
-        raise ValueError(f"unknown attention impl {impl!r}")
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True) -> torch.Tensor:
+    """GQA attention: the flash-attention kernel (K1) on CUDA tensors,
+    ``dense_attention`` on CPU tensors. ``cfg.attention_impl`` picks nothing
+    here: each device has one attention."""
     if q.is_cuda:
-        if q_offset:
-            raise NotImplementedError("the flash-attention kernel has no "
-                                      "q_offset (queries start at key 0)")
         return fa_ops.flash_attention(q, k, v, causal=causal)
-    if impl == "auto":
-        impl = "chunked" if k.shape[1] > 4096 else "dense"
-    if impl == "dense" or q_offset:
-        return dense_attention(q, k, v, causal=causal, q_offset=q_offset)
-    return fa_ops.flash_attention(q, k, v, causal=causal)
+    return dense_attention(q, k, v, causal=causal)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

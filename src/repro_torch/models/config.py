@@ -59,9 +59,9 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     remat: bool = True                # JAX only; kept for asdict parity
     scan_layers: bool = True          # JAX only; kept for asdict parity
-    attention_impl: str = "auto"      # auto | dense | chunked | pallas (CPU);
-    #                                   on CUDA every impl runs the K1 kernel
-    attention_chunk: int = 1024
+    attention_impl: str = "auto"      # JAX only; kept for asdict parity (the
+    #                                   port runs K1 on CUDA, dense on the CPU)
+    attention_chunk: int = 1024       # JAX only; kept for asdict parity
     decode_cache_mode: str = "readonly_fused"   # JAX only; both modes compute
     #                                   the same function as the port's
     #                                   in-place cache write

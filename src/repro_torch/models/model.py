@@ -6,7 +6,8 @@ architecture families — so far only ``dense``.
   prefill / decode_step                    -> serving (KV cache from
                                               transformer.init_cache)
 
-``batch`` is a dict: tokens (B, S) int, optional frontend_embeds (B, P, D).
+``batch`` is a dict holding tokens (B, S) int; a ``frontend_embeds`` entry,
+which only the vlm and audio families read, is refused until they are ported.
 """
 from __future__ import annotations
 
@@ -27,6 +28,14 @@ _NOT_PORTED = {
 }
 
 
+def _tokens(batch: Dict) -> torch.Tensor:
+    if "frontend_embeds" in batch:
+        raise NotImplementedError(
+            "frontend_embeds feed the vlm/audio frontends, which are not "
+            f"ported yet (ROADMAP.md, Queue 1 {_NOT_PORTED['vlm']})")
+    return batch["tokens"]
+
+
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family == "dense":
         return
@@ -45,8 +54,7 @@ def param_specs(cfg: ModelConfig):
 def forward(cfg: ModelConfig, params, batch: Dict
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_family(cfg)
-    return transformer.forward(cfg, params, batch["tokens"],
-                               frontend_embeds=batch.get("frontend_embeds"))
+    return transformer.forward(cfg, params, _tokens(batch))
 
 
 def decode_step(cfg: ModelConfig, params, state, tokens, pos: int):
@@ -57,6 +65,4 @@ def decode_step(cfg: ModelConfig, params, state, tokens, pos: int):
 def prefill(cfg: ModelConfig, params, batch: Dict, cache=None):
     """Last-position logits + the KV cache (written into ``cache`` if given)."""
     _check_family(cfg)
-    return transformer.prefill(cfg, params, batch["tokens"],
-                               frontend_embeds=batch.get("frontend_embeds"),
-                               cache=cache)
+    return transformer.prefill(cfg, params, _tokens(batch), cache=cache)

@@ -129,8 +129,7 @@ def _layer(cfg: ModelConfig, lp, h: torch.Tensor, cos, sin):
     """One pre-norm residual layer. Returns (h, k, v); k/v feed the cache."""
     x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
     q, k, v = _qkv(cfg, lp, x, cos, sin)
-    out = attention(q, k, v, causal=True, impl=cfg.attention_impl,
-                    chunk=cfg.attention_chunk)
+    out = attention(q, k, v, causal=True)
     h = h + _attn_out(cfg, lp, out)
     x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
     return h + dense_ffn(cfg, lp, x), k, v
@@ -149,10 +148,8 @@ def layer_slice(params, i: int) -> Dict[str, torch.Tensor]:
     return {k: v[i] for k, v in params["layers"].items()}
 
 
-def _embed_and_rope(cfg, params, tokens, frontend_embeds):
+def _embed_and_rope(cfg, params, tokens):
     h = _embed_tokens(cfg, params, tokens)
-    if frontend_embeds is not None:
-        h = torch.cat([frontend_embeds.to(h.dtype), h], dim=1)
     S = h.shape[1]
     cos, sin = rope_angles(torch.arange(S, device=h.device), cfg.head_dim,
                            cfg.rope_theta)
@@ -163,11 +160,10 @@ def _embed_and_rope(cfg, params, tokens, frontend_embeds):
 # Forward / prefill / decode
 # ---------------------------------------------------------------------------
 
-def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
-            frontend_embeds: Optional[torch.Tensor] = None
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eval forward pass. Returns (logits, aux_loss). tokens: (B, S) int."""
-    h, cos, sin = _embed_and_rope(cfg, params, tokens, frontend_embeds)
+    h, cos, sin = _embed_and_rope(cfg, params, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.num_layers):
         h, a = decoder_layer(cfg, layer_slice(params, i), h, cos, sin)
@@ -189,15 +185,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
             for k, (shape, dt) in init_cache_specs(cfg, batch, max_seq).items()}
 
 
-def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
-            frontend_embeds: Optional[torch.Tensor] = None, cache=None):
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache=None):
     """Forward pass that also fills the KV cache. Returns (logits_last, cache).
 
     Without ``cache`` a (L, B, S, G, dh) cache is allocated; with one (of any
     length T >= S, e.g. preallocated for serving) positions [0, S) are
     written in place and the same dict is returned.
     """
-    h, cos, sin = _embed_and_rope(cfg, params, tokens, frontend_embeds)
+    h, cos, sin = _embed_and_rope(cfg, params, tokens)
     B, S = h.shape[:2]
     if cache is None:
         shape = (cfg.num_layers, B, S, cfg.num_kv_heads, cfg.head_dim)

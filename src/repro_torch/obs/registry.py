@@ -4,25 +4,20 @@ Each stats object declares a metric spec and registers its fields under a
 stable dotted name (``serve.0.tokens_out``), so one ``registry.snapshot()``
 captures the whole process. ``StatsView`` keeps ``stats.field += 1`` call
 sites working: counters/gauges live in a ``Metric`` cell read and written
-through attribute access, and histograms ARE ``LatencyWindow`` objects.
+through attribute access. The JAX registry's histograms have no copy here
+yet: no ported stats object declares one.
 """
 from __future__ import annotations
 
 import threading
 from typing import Dict, Optional
 
-from repro_torch.core.stats import LatencyWindow, percentiles
-
-__all__ = ["Counter", "Gauge", "Histogram", "Metric", "MetricsRegistry",
-           "StatsView", "default_registry"]
+__all__ = ["Counter", "Gauge", "Metric", "MetricsRegistry", "StatsView",
+           "default_registry"]
 
 #: metric kinds a ``StatsView`` spec may declare
 COUNTER = "counter"
 GAUGE = "gauge"
-HISTOGRAM = "histogram"
-
-#: histogram tail length for registry-backed windows
-DEFAULT_WINDOW = 1024
 
 
 class Metric:
@@ -49,24 +44,6 @@ class Gauge(Metric):
         super().__init__(name, GAUGE, 0.0)
 
 
-class Histogram(LatencyWindow):
-    """A ``LatencyWindow`` that lives in the registry."""
-
-    __slots__ = ("name",)
-
-    def __init__(self, name: str, maxlen: int = DEFAULT_WINDOW):
-        super().__init__(maxlen=maxlen)
-        self.name = name
-
-    def summary(self) -> dict:
-        """JSON-stable summary: exact count/sum + tail percentiles."""
-        ps = percentiles(self, (50.0, 95.0, 99.0))
-        out = {"count": self.count, "sum": self.total}
-        for p, v in ps.items():
-            out[f"p{int(p)}"] = None if v != v else v  # NaN -> null
-        return out
-
-
 class MetricsRegistry:
     """Dotted-name metric namespace for one process.
 
@@ -77,7 +54,6 @@ class MetricsRegistry:
 
     def __init__(self):
         self._metrics: Dict[str, Metric] = {}
-        self._histograms: Dict[str, Histogram] = {}
         self._scopes: Dict[str, int] = {}
         self._lock = threading.Lock()
 
@@ -94,41 +70,23 @@ class MetricsRegistry:
     def gauge(self, name: str) -> Gauge:
         return self._register(Gauge(name))
 
-    def histogram(self, name: str, maxlen: int = DEFAULT_WINDOW) -> Histogram:
-        with self._lock:
-            if name in self._metrics or name in self._histograms:
-                raise ValueError(f"metric {name!r} already registered")
-            h = Histogram(name, maxlen=maxlen)
-            self._histograms[name] = h
-            return h
-
     def _register(self, m: Metric) -> Metric:
         with self._lock:
-            if m.name in self._metrics or m.name in self._histograms:
+            if m.name in self._metrics:
                 raise ValueError(f"metric {m.name!r} already registered")
             self._metrics[m.name] = m
             return m
 
     def get(self, name: str):
-        """Scalar for counters/gauges, summary dict for histograms."""
+        """The value of a counter or gauge."""
         with self._lock:
-            if name in self._metrics:
-                return self._metrics[name].value
-            return self._histograms[name].summary()
+            return self._metrics[name].value
 
     def snapshot(self, prefix: str = "") -> Dict[str, object]:
         """Flat ``{dotted.name: value}`` dict, optionally filtered by prefix."""
         with self._lock:
             metrics = list(self._metrics.values())
-            hists = list(self._histograms.values())
-        out: Dict[str, object] = {}
-        for m in metrics:
-            if m.name.startswith(prefix):
-                out[m.name] = m.value
-        for h in hists:
-            if h.name.startswith(prefix):
-                out[h.name] = h.summary()
-        return out
+        return {m.name: m.value for m in metrics if m.name.startswith(prefix)}
 
 
 _default = MetricsRegistry()
@@ -149,7 +107,6 @@ class StatsView:
 
     _FAMILY = "stats"
     _SPEC: Dict[str, str] = {}
-    _WINDOWS: Dict[str, int] = {}
 
     def __init__(self, instance: str = "0",
                  registry: Optional[MetricsRegistry] = None):
@@ -162,9 +119,6 @@ class StatsView:
                 cells[field] = reg.counter(name)
             elif kind == GAUGE:
                 cells[field] = reg.gauge(name)
-            elif kind == HISTOGRAM:
-                cells[field] = reg.histogram(
-                    name, maxlen=self._WINDOWS.get(field, DEFAULT_WINDOW))
             else:
                 raise ValueError(f"unknown metric kind {kind!r} for {name}")
         object.__setattr__(self, "_cells", cells)
@@ -177,17 +131,12 @@ class StatsView:
         except (AttributeError, KeyError):
             raise AttributeError(
                 f"{type(self).__name__} has no attribute {field!r}")
-        return cell if isinstance(cell, Histogram) else cell.value
+        return cell.value
 
     def __setattr__(self, field, value):
         cells = getattr(self, "_cells", None)
         if cells is not None and field in cells:
-            cell = cells[field]
-            if isinstance(cell, Histogram):
-                raise AttributeError(
-                    f"{self._scope}.{field} is a histogram; append to it "
-                    f"instead of assigning")
-            cell.value = value
+            cells[field].value = value
         else:
             object.__setattr__(self, field, value)
 
@@ -197,14 +146,8 @@ class StatsView:
         return self._scope
 
     def snapshot(self) -> dict:
-        """Field -> value dict (histograms as summary dicts)."""
-        out = {}
-        for field, cell in self._cells.items():
-            out[field] = (cell.summary() if isinstance(cell, Histogram)
-                          else cell.value)
-        return out
+        """Field -> value dict."""
+        return {field: cell.value for field, cell in self._cells.items()}
 
     def __repr__(self) -> str:
-        scalars = {f: c.value for f, c in self._cells.items()
-                   if not isinstance(c, Histogram)}
-        return f"{type(self).__name__}({self._scope}: {scalars})"
+        return f"{type(self).__name__}({self._scope}: {self.snapshot()})"

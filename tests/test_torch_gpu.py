@@ -7,8 +7,16 @@ only PyTorch:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-Tolerance: bf16 atol = rtol = 4e-2 (tests/test_kernels.py); every kernel
-takes bf16.
+Tolerances. A kernel against its plain version, as chip_smoke.py checks
+it: each element must hold |kernel - plain| <= 2**-7 |plain| + c RMS, one
+bf16 ulp of the value plus a share c of the RMS of its output vector (the
+last axis): c = 1e-2 for RMSNorm and decode attention, which compute in
+fp32 throughout, and 2e-2 for flash attention, which feeds P to the tensor
+cores in bf16. A fixed 4e-2 would be as large as a decode-attention output
+over 1000 keys. The
+model on the card against the model on the CPU runs through different
+weight products, so it keeps the end-to-end bf16 atol = rtol = 4e-2 of
+tests/test_kernels.py.
 """
 import pytest
 
@@ -43,6 +51,21 @@ def _randn(gen, shape, dtype, device):
     return torch.randn(shape, generator=gen, device=device).to(dtype)
 
 
+KERNEL_RTOL = 2.0 ** -7
+
+
+def _assert_kernel_close(got, want, c):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    err = (g - w).abs()
+    rms = w.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    limit = KERNEL_RTOL * w.abs() + c * rms
+    worst = float((err / limit.clamp_min(1e-30)).max())
+    assert worst <= 1.0, (f"max |err| {float(err.max()):.3e}, worst element "
+                          f"at {worst:.2f}x its limit")
+
+
 def _assert_close(got, want):
     assert got.dtype == want.dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), atol=4e-2, rtol=4e-2)
@@ -54,7 +77,7 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape):
     gen = torch.Generator(device=cuda).manual_seed(0)
     x = _randn(gen, shape, torch.bfloat16, cuda)
     w = _randn(gen, (shape[-1],), torch.float32, cuda)
-    _assert_close(rmsnorm(x, w), rmsnorm_ref(x, w))
+    _assert_kernel_close(rmsnorm(x, w), rmsnorm_ref(x, w), c=1e-2)
 
 
 @pytest.mark.parametrize("B,S,T,H,G,dh,causal", [
@@ -69,8 +92,8 @@ def test_flash_attention_kernel_matches_plain(cuda, B, S, T, H, G, dh, causal):
     q = _randn(gen, (B, S, H, dh), torch.bfloat16, cuda)
     k = _randn(gen, (B, T, G, dh), torch.bfloat16, cuda)
     v = _randn(gen, (B, T, G, dh), torch.bfloat16, cuda)
-    _assert_close(flash_attention(q, k, v, causal),
-                  flash_attention_ref(q, k, v, causal))
+    _assert_kernel_close(flash_attention(q, k, v, causal),
+                         flash_attention_ref(q, k, v, causal), c=2e-2)
 
 
 @pytest.mark.parametrize("B,H,G,dh,T,cur", [
@@ -85,8 +108,8 @@ def test_decode_attention_kernel_matches_plain(cuda, B, H, G, dh, T, cur):
     q = _randn(gen, (B, H, dh), torch.bfloat16, cuda)
     kc = _randn(gen, (B, T, G, dh), torch.bfloat16, cuda)
     vc = _randn(gen, (B, T, G, dh), torch.bfloat16, cuda)
-    _assert_close(decode_attention(q, kc, vc, cur),
-                  decode_attention_ref(q, kc, vc, cur))
+    _assert_kernel_close(decode_attention(q, kc, vc, cur),
+                         decode_attention_ref(q, kc, vc, cur), c=1e-2)
 
 
 def test_kernels_refuse_inputs_they_do_not_take(cuda):

@@ -204,6 +204,16 @@ def test_families_not_yet_ported_raise(family):
         param_specs(cfg)
 
 
+@pytest.mark.parametrize("entry", ["forward", "prefill"])
+def test_frontend_embeds_are_refused_until_a_frontend_is_ported(entry):
+    _, tcfg, _, tparams = _configs("float32")
+    batch = {"tokens": torch.from_numpy(_tokens(tcfg.vocab_size)),
+             "frontend_embeds": torch.zeros(B, 2, tcfg.d_model)}
+    fn = forward if entry == "forward" else prefill
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fn(tcfg, tparams, batch)
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     modules = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
