@@ -10,13 +10,15 @@ Phases, each of which raises (exit code != 0) on failure:
    one compiler per source, all started together; ptxas's register, shared
    memory and spill report per kernel.
 3. Kernels against their plain PyTorch versions on the card, in bf16, at the
-   serving path's shapes plus a ragged and a tiny case each: max |err| and
+   serving paths' shapes (RMSNorm at both models' widths, 4096 and 2560)
+   plus a ragged and a tiny case each: max |err| and
    the worst element's share of its limit (one bf16 ulp of the value plus
    1-2% of its output vector's RMS; see KERNEL_RTOL), with a one-key fault that the
-   check must refuse for each attention kernel; the kernel's and the plain
+   check must refuse for each attention kernel and two for WKV6 (u zeroed:
+   y refused; the last token's k zeroed: the state refused); the kernel's and the plain
    version's time (CUDA events, per launch after warm-up, L2 flushed before
    each launch), one PyTorch library call of the same function as a
-   yardstick (never used by the port), and the least time the card could
+   yardstick (never used by the port; WKV6 has none), and the least time the card could
    take (bytes over 3.35 TB/s, operations over the peak rate for their
    type).
 4. Serving at full width: granite-8b (36 layers, d_model 4096) with random
@@ -25,13 +27,21 @@ Phases, each of which raises (exit code != 0) on failure:
    ``ServeEngine.run_batch``. Launch counts are reset just before and read
    just after: 73 RMSNorm + 36 flash-attention launches per prefill, 73
    RMSNorm + 36 flash-decode launches per decode step. Then torch.profiler
-   reads the device-busy share of one prefill and of 8 decode steps.
-5. A 2-layer cut of the same weights: prefill logits and three decode
-   steps' logits with the kernels against the plain versions on the card.
+   reads the device-busy share of one prefill and of 8 decode steps, and a
+   2-layer cut of the same weights holds prefill logits and three decode
+   steps' logits, kernels against plain versions on the card.
+5. The same for rwkv6-3b (32 layers, d_model 2560) through the model-level
+   API (``prefill``, then greedy ``decode_step`` over the recurrent state,
+   the host reading each token; ``ServeEngine`` refuses the RWKV family as
+   the JAX engine does): 32 WKV6 + 97 RMSNorm launches per prefill, 97
+   RMSNorm and no WKV6 per decode step, no attention kernel. The granite
+   engine is freed first.
 
 The last lines are the ``nvidia-smi`` name/power-limit line as it prints
 it, one JSON object with every kernel's numbers, and ``{"ok": true,
-"device": {...}}``.
+"device": {...}}``. A kernel's ``launches`` is its count on the path it was
+ported for (granite-8b for RMSNorm and both attention kernels, rwkv6-3b for
+WKV6); ``launches_by_path`` gives each path's count.
 """
 from __future__ import annotations
 
@@ -52,13 +62,19 @@ ROOT = Path(__file__).resolve().parent
 # cur_index 1015 average ~1016 unit-normal values and have an RMS near 0.05,
 # and a fixed 4e-2 would pass a wrong split, combine or tail mask there.
 # KERNEL_RTOL is one bf16 ulp of the value (both versions round the output
-# to bf16 once). c covers the rest: K2 and K3 compute in fp32 throughout
-# (1%); K1 feeds P to the tensor cores in bf16 while its plain version keeps
+# to bf16 once). c covers the rest: K2, K3 and K4's y compute in fp32
+# throughout (1%); K1 feeds P to the tensor cores in bf16 while its plain version keeps
 # P in fp32, which adds noise of ~2**-9 of the output's scale per element,
 # up to ~0.7% at the largest of 32 M elements (2%).
 KERNEL_RTOL = 2.0 ** -7
+# WKV6's fp32 state, kernel (token by token) against plain (chunks of 64):
+# rtol = c = 1e-3 of the row's RMS. The plain version carries the decay as
+# exp of differences of fp32 cumulative log sums that reach ~-1800 over a
+# chunk (log w is clamped at log 1e-12 = -27.6), whose rounding is ~1e-4 of
+# a decay factor; the rest is fp32 summation over at most 1000 steps.
+WKV_STATE_TOL = 1e-3
 KERNEL_ATOL_OF_RMS = {"rmsnorm": 1e-2, "decode_attention": 1e-2,
-                      "flash_attention": 2e-2}
+                      "flash_attention": 2e-2, "wkv6": 1e-2}
 # The 2-layer logits, kernel path against plain path, end to end through
 # bf16 weight products: atol = rtol, the bf16 tolerance of
 # tests/test_kernels.py:20-22 (the logits' RMS is printed beside it).
@@ -67,10 +83,12 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_TENSOR_FLOPS = 989e12   # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12           # fp32 outside the tensor cores
 
-# the serving run of phase 4
+# the serving runs of phases 4 and 5
 BATCH, PROMPT, NEW_TOKENS = 8, 1000, 32
 MAX_SEQ = PROMPT + NEW_TOKENS
 SEED = 0
+# rwkv6-3b's WKV shape: d_model 2560 / head_dim 64, and its rwkv_chunk
+RWKV_HEADS, RWKV_CHUNK = 40, 64
 
 
 def log(*a):
@@ -109,31 +127,34 @@ def bound(nbytes: float, flops: float, peak_flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def share_of_limit(torch, name, got, want):
-    """(max |err|, the worst element's |err| as a share of its limit);
-    ``name`` starts with the kernel's name."""
+def share_of_limit(torch, name, got, want, rtol=KERNEL_RTOL, c=None):
+    """(max |err|, the worst element's |err| as a share of its limit
+    rtol |want| + c RMS); ``name`` starts with the kernel's name, which
+    gives c unless it is passed."""
     g, w = got.float(), want.float()
     if got.shape != want.shape or not torch.isfinite(g).all():
         raise AssertionError(f"{name}: shape {tuple(got.shape)} or non-finite output")
     err = (g - w).abs()
     rms = w.pow(2).mean(dim=-1, keepdim=True).sqrt()
-    limit = KERNEL_RTOL * w.abs() + KERNEL_ATOL_OF_RMS[name.split()[0]] * rms
+    if c is None:
+        c = KERNEL_ATOL_OF_RMS[name.split()[0]]
+    limit = rtol * w.abs() + c * rms
     return float(err.max()), float((err / limit.clamp_min(1e-30)).max())
 
 
-def check_kernel(torch, name, got, want):
+def check_kernel(torch, name, got, want, **tol):
     """Kernel output against its plain version: (max |err|, share)."""
-    err, share = share_of_limit(torch, name, got, want)
+    err, share = share_of_limit(torch, name, got, want, **tol)
     if share > 1.0:
         raise AssertionError(f"{name}: max |err| {err:.3e}, worst "
                              f"element at {share:.2f}x its limit")
     return err, share
 
 
-def check_rejects(torch, name, got, want) -> float:
+def check_rejects(torch, name, got, want, **tol) -> float:
     """A negative control: ``got`` carries a deliberate one-key fault, and
     the kernel check must refuse it. Returns the worst share of the limit."""
-    _, share = share_of_limit(torch, name, got, want)
+    _, share = share_of_limit(torch, name, got, want, **tol)
     if share <= 1.0:
         raise AssertionError(f"{name}: the kernel check let a one-key fault "
                              f"through ({share:.2f} of its limit)")
@@ -158,6 +179,8 @@ def phase_kernels(torch, F, flush):
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ref import wkv6_chunked
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -167,15 +190,15 @@ def phase_kernels(torch, F, flush):
 
     entries = {}
 
-    # -- K2 RMSNorm -----------------------------------------------------------
-    D = 4096
-    for label, rows, dim in (("prefill", BATCH * PROMPT, D), ("decode", BATCH, D),
-                             ("ragged", 1001, D), ("tiny", 3, 64)):
+    # -- K2 RMSNorm: granite-8b's D 4096, rwkv6-3b's D 2560 --------------------
+    for label, rows, dim in (("prefill", BATCH * PROMPT, 4096), ("decode", BATCH, 4096),
+                             ("ragged", 1001, 4096), ("rwkv prefill", BATCH * PROMPT, 2560),
+                             ("rwkv decode", BATCH, 2560), ("tiny", 3, 64)):
         x, w = randn(rows, dim), randn(dim, dtype=torch.float32)
         err, share = check_kernel(torch, f"rmsnorm {label}", rmsnorm(x, w),
                                   rmsnorm_ref(x, w))
         line = f"rmsnorm {label} ({rows}, {dim}): max|err| {err:.3e} ({share:.2f} of limit)"
-        if label in ("prefill", "decode"):
+        if label in ("prefill", "decode", "rwkv prefill"):
             ms = time_ms(torch, lambda: rmsnorm(x, w), flush, 50)
             plain = time_ms(torch, lambda: rmsnorm_ref(x, w), flush, 20)
             wb = w.to(x.dtype)
@@ -192,7 +215,7 @@ def phase_kernels(torch, F, flush):
                     max_err_share_of_limit=share, ms=ms,
                     plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
             else:
-                entries["rmsnorm"]["decode_shape_ms"] = ms
+                entries["rmsnorm"][label.replace(" ", "_") + "_shape_ms"] = ms
         log(line)
 
     # -- K1 flash attention -----------------------------------------------------
@@ -272,6 +295,50 @@ def phase_kernels(torch, F, flush):
             check_rejects(torch, "decode_attention decode, newest key dropped",
                           decode_attention(q, kc, vc, cur - 1),
                           decode_attention_ref(q, kc, vc, cur))
+
+    # -- K4 WKV6 ------------------------------------------------------------------
+    for label, (B, S, H, dh) in (("prefill", (BATCH, PROMPT, RWKV_HEADS, 64)),
+                                 ("ragged", (3, 45, 5, 64)),
+                                 ("one-token", (1, 1, 1, 64))):
+        r, k, v = randn(B, S, H, dh), randn(B, S, H, dh), randn(B, S, H, dh)
+        # the model's decay, exp(-exp(clip(., -8, 4))), rounded to bf16 as prefill does
+        w = torch.exp(-torch.exp(randn(B, S, H, dh, dtype=torch.float32)
+                                 .clamp(-8.0, 4.0))).to(torch.bfloat16)
+        u = 0.3 * randn(H, dh, dtype=torch.float32)
+        y, st = wkv6(r, k, v, w, u, RWKV_CHUNK)
+        py, pst = wkv6_chunked(r, k, v, w, u, RWKV_CHUNK)
+        err, share = check_kernel(torch, f"wkv6 {label} y", y, py)
+        s_err, s_share = check_kernel(torch, f"wkv6 {label} state", st, pst,
+                                      rtol=WKV_STATE_TOL, c=WKV_STATE_TOL)
+        line = (f"wkv6 {label} r/k/v/w{(B, S, H, dh)}: y max|err| {err:.3e} "
+                f"({share:.2f} of limit), state max|err| {s_err:.3e} "
+                f"({s_share:.2f} of limit)")
+        if label == "prefill":
+            ms = time_ms(torch, lambda: wkv6(r, k, v, w, u, RWKV_CHUNK), flush, 20)
+            plain = time_ms(torch, lambda: wkv6_chunked(r, k, v, w, u, RWKV_CHUNK),
+                            flush, 5)
+            nbytes = 5 * r.numel() * 2 + st.numel() * 4 + u.numel() * 4
+            flops = 4.0 * dh * dh * B * S * H  # S update + r^T S: 2 dh^2 FMAs a token
+            b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
+            line += (f"  kernel {ms:.4f} ms  plain {plain:.4f} ms  library none  "
+                     f"bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.2f} GFLOP, "
+                     f"{nbytes / 1e6:.1f} MB)")
+            entries["wkv6"] = dict(
+                name="wkv6", route="cuda", source="src/repro_torch/csrc/wkv6.cu",
+                replaces="src/repro/kernels/wkv6/kernel.py:29",
+                shape=f"r/k/v/w ({B}, {S}, {H}, {dh}) bf16, u ({H}, {dh}) fp32",
+                max_abs_err=err, max_err_share_of_limit=share,
+                state_max_abs_err=s_err, state_max_err_share_of_limit=s_share,
+                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        log(line)
+        if label == "prefill":
+            check_rejects(torch, "wkv6 prefill y, u zeroed",
+                          wkv6(r, k, v, w, torch.zeros_like(u), RWKV_CHUNK)[0], py)
+            k_bad = k.clone()
+            k_bad[:, -1] = 0
+            check_rejects(torch, "wkv6 prefill state, last token's k zeroed",
+                          wkv6(r, k_bad, v, w, u, RWKV_CHUNK)[1], pst,
+                          rtol=WKV_STATE_TOL, c=WKV_STATE_TOL)
     return entries
 
 
@@ -317,7 +384,7 @@ def phase_serve(torch, kcommon):
             raise AssertionError(f"request {r.rid}: bad output {r.generated}")
     want = {"rmsnorm": (2 * cfg.num_layers + 1) * (1 + steps),
             "flash_attention": cfg.num_layers,
-            "decode_attention": cfg.num_layers * steps}
+            "decode_attention": cfg.num_layers * steps, "wkv6": 0}
     if steps != NEW_TOKENS - 1 or launches != want:
         raise AssertionError(f"launch counts {launches} (decode steps {steps}), want {want}")
     log(f"serve: batch {BATCH} x prompt {PROMPT}, {NEW_TOKENS} new tokens each: "
@@ -329,28 +396,102 @@ def phase_serve(torch, kcommon):
     return engine, launches
 
 
-def phase_profile(torch, engine):
+def phase_serve_rwkv(torch, kcommon):
+    """Full-width rwkv6-3b serving through the model-level API; returns
+    (cfg, params, launches)."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import (decode_step, init_decode_state, init_params,
+                                    param_specs, prefill)
+    from repro_torch.serve.engine import serving_params
+
+    cfg = get_config("rwkv6_3b")
+    t0 = time.monotonic()
+    with torch.inference_mode():
+        params = serving_params(cfg, init_params(param_specs(cfg), seed=SEED, device="cuda"),
+                                torch.device("cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"rwkv6-3b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.d_model // cfg.rwkv_head_dim} WKV heads of {cfg.rwkv_head_dim}, "
+        f"{cfg.param_count() / 1e9:.3f} B params; init + cast {time.monotonic() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+
+    @torch.inference_mode()
+    def serve(n_new):
+        """Prefill, then greedy decode as ServeEngine.run_batch does it (the
+        host reads each token). Returns (tokens, prefill s, decode s,
+        launches counted by the end of prefill, last logits)."""
+        prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, PROMPT))).cuda()
+        t0 = time.monotonic()
+        state = init_decode_state(cfg, BATCH, MAX_SEQ, device="cuda")
+        logits, state = prefill(cfg, params, {"tokens": prompts}, cache=state)
+        torch.cuda.synchronize()
+        prefill_s = time.monotonic() - t0
+        at_prefill = dict(kcommon.launches)
+        tok, out = torch.argmax(logits, dim=-1), []
+        t0 = time.monotonic()
+        for i in range(n_new):
+            out.append(tok.cpu())
+            if i + 1 == n_new:
+                break
+            logits, state = decode_step(cfg, params, state, tok, PROMPT + i)
+            tok = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        return torch.stack(out, 1), prefill_s, time.monotonic() - t0, at_prefill, logits
+
+    serve(2)  # warm-up: cuBLAS handles, kernel modules
+    torch.cuda.reset_peak_memory_stats()
+    kcommon.reset_launches()
+    tokens, prefill_s, decode_s, at_prefill, logits = serve(NEW_TOKENS)
+    launches = dict(kcommon.launches)
+    peak = torch.cuda.max_memory_allocated()
+
+    steps = NEW_TOKENS - 1
+    per_norm = 3 * cfg.num_layers + 1
+    want_prefill = {"rmsnorm": per_norm, "flash_attention": 0, "decode_attention": 0,
+                    "wkv6": cfg.num_layers}
+    want = dict(want_prefill, rmsnorm=per_norm * (1 + steps))
+    if at_prefill != want_prefill or launches != want:
+        raise AssertionError(f"rwkv6-3b launch counts {at_prefill} after prefill, {launches} "
+                             f"after {steps} decode steps; want {want_prefill}, {want}")
+    if tuple(tokens.shape) != (BATCH, NEW_TOKENS) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"rwkv6-3b: bad tokens {tokens}")
+    if not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError("rwkv6-3b: non-finite logits")
+    log(f"rwkv serve: batch {BATCH} x prompt {PROMPT}, {NEW_TOKENS} new tokens each: "
+        f"prefill {prefill_s * 1e3:.2f} ms; decode {steps} steps in {decode_s * 1e3:.2f} ms "
+        f"({decode_s / steps * 1e3:.3f} ms/step, {tokens.numel() / decode_s:.1f} tokens/s "
+        f"as tokens out / decode wall); max_memory_allocated {peak / 2**30:.2f} GiB")
+    log(f"rwkv serve launches: {at_prefill} after prefill, {launches} in all "
+        f"(expected {want_prefill}, {want})")
+    log(f"rwkv serve sample: sequence 0 generated {tokens[0, :8].tolist()} ...")
+    return cfg, params, launches
+
+
+def phase_profile(torch, name, cfg, params):
     """Where serving time goes: device-busy share of one prefill and of 8
     decode steps (torch.profiler, CUDA activity only), and the kernels that
     take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.models import decode_step, init_decode_state, prefill
 
-    cfg, params = engine.cfg, engine.params
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device="cuda")
     with torch.inference_mode():
-        cache = init_cache(cfg, BATCH, MAX_SEQ, device="cuda")
+        state = init_decode_state(cfg, BATCH, MAX_SEQ, device="cuda")
 
         def run_prefill():
-            prefill(cfg, params, {"tokens": tokens}, cache=cache)
+            prefill(cfg, params, {"tokens": tokens}, cache=state)
 
         def run_decode():  # as ServeEngine.run_batch: the host reads each token
             tok = tokens[:, -1]
             for i in range(8):
-                logits, _ = decode_step(cfg, params, cache, tok, PROMPT + i)
+                logits, _ = decode_step(cfg, params, state, tok, PROMPT + i)
                 tok = torch.argmax(logits, dim=-1)
                 tok.cpu()
 
@@ -365,8 +506,8 @@ def phase_profile(torch, engine):
                            if e.self_device_time_total > 0), reverse=True)
             busy = sum(t for t, _ in rows) / 1e6
             if busy <= 0:
-                raise AssertionError(f"profile {label}: the profiler saw no device time")
-            log(f"profile {label}: wall {wall * 1e3:.2f} ms (profiler on), device busy "
+                raise AssertionError(f"profile {name} {label}: the profiler saw no device time")
+            log(f"profile {name} {label}: wall {wall * 1e3:.2f} ms (profiler on), device busy "
                 f"{busy * 1e3:.2f} ms = {busy / wall:.1%} of wall")
             for t, key in rows[:8]:
                 log(f"    {t / 1e3:9.3f} ms  {t / 1e6 / busy:6.1%}  {key[:90]}")
@@ -374,48 +515,49 @@ def phase_profile(torch, engine):
 
 @contextlib.contextmanager
 def plain_path():
-    """Swap the model's kernel entry points for their plain versions (a
+    """Swap the models' kernel entry points for their plain versions (a
     comparison device of this script only; the port itself has no such
     switch)."""
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-    from repro_torch.models import transformer
+    from repro_torch.kernels.wkv6.ref import wkv6_chunked
+    from repro_torch.models import rwkv6, transformer
 
     plain = {
-        "rms_norm": rmsnorm_ref,
-        "attention": flash_attention_ref,
-        "decode_attention": decode_attention_ref,
+        (transformer, "rms_norm"): rmsnorm_ref,
+        (transformer, "attention"): flash_attention_ref,
+        (transformer, "decode_attention"): decode_attention_ref,
+        (rwkv6, "rms_norm"): rmsnorm_ref,
+        (rwkv6, "wkv6"): wkv6_chunked,
     }
-    saved = {name: getattr(transformer, name) for name in plain}
-    for name, fn in plain.items():
-        setattr(transformer, name, fn)
+    saved = {key: getattr(*key) for key in plain}
+    for (mod, name), fn in plain.items():
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(transformer, name, fn)
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
 
 
-def phase_kernel_vs_plain(torch, engine):
+def phase_kernel_vs_plain(torch, name, cfg, params):
     """2-layer cut at full width: kernel path vs plain path on the card."""
     import numpy as np
 
-    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.models import decode_step, init_decode_state, prefill
 
-    cfg = engine.cfg.replace(num_layers=2)
-    p = engine.params
-    params = {"embed": p["embed"], "unembed": p["unembed"], "final_norm": p["final_norm"],
-              "layers": {k: v[:2] for k, v in p["layers"].items()}}
+    cfg = cfg.replace(num_layers=2)
+    params = dict(params, layers={k: v[:2] for k, v in params["layers"].items()})
     rng = np.random.default_rng(SEED + 1)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, PROMPT))).cuda()
 
     def run():
-        cache = init_cache(cfg, BATCH, MAX_SEQ, device="cuda")
-        logits, cache = prefill(cfg, params, {"tokens": tokens}, cache=cache)
+        state = init_decode_state(cfg, BATCH, MAX_SEQ, device="cuda")
+        logits, state = prefill(cfg, params, {"tokens": tokens}, cache=state)
         outs = [logits]
         for i, tok in enumerate(feed):
-            logits, cache = decode_step(cfg, params, cache, tok, PROMPT + i)
+            logits, state = decode_step(cfg, params, state, tok, PROMPT + i)
             outs.append(logits)
         return outs
 
@@ -430,10 +572,10 @@ def phase_kernel_vs_plain(torch, engine):
             plain = run()
     errs = []
     for i, (a, b) in enumerate(zip(kernel, plain)):
-        name = "prefill logits" if i == 0 else f"decode step {i} logits"
-        errs.append(check_close(torch, f"2-layer {name}", a, b))
+        step = "prefill logits" if i == 0 else f"decode step {i} logits"
+        errs.append(check_close(torch, f"{name} 2-layer {step}", a, b))
     rms = [float(b.float().pow(2).mean().sqrt()) for b in plain]
-    log(f"2-layer cut, kernels vs plain on the card (bf16, atol = rtol = {E2E_TOL}): "
+    log(f"{name} 2-layer cut, kernels vs plain on the card (bf16, atol = rtol = {E2E_TOL}): "
         f"max|err| prefill {errs[0]:.3e}, decode steps {[f'{e:.3e}' for e in errs[1:]]}; "
         f"RMS of the plain logits {[f'{r:.3f}' for r in rms]}")
 
@@ -446,6 +588,8 @@ def main() -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    import gc
+
     import torch.nn.functional as F
 
     from repro_torch.kernels import common as kcommon
@@ -473,15 +617,26 @@ def main() -> int:
     entries = phase_kernels(torch, F, flush)
     del flush
 
-    # -- 4. serving at full width ----------------------------------------------------------
-    engine, launches = phase_serve(torch, kcommon)
+    # -- 4. granite-8b at full width, its profile and its 2-layer cut ---------------------
+    engine, dense_launches = phase_serve(torch, kcommon)
+    phase_profile(torch, "granite-8b", engine.cfg, engine.params)
+    phase_kernel_vs_plain(torch, "granite-8b", engine.cfg, engine.params)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 5. rwkv6-3b at full width, its profile and its 2-layer cut -----------------------
+    cfg, params, rwkv_launches = phase_serve_rwkv(torch, kcommon)
+    phase_profile(torch, "rwkv6-3b", cfg, params)
+    phase_kernel_vs_plain(torch, "rwkv6-3b", cfg, params)
+
+    # launches: each kernel's count on the path it was ported for (granite-8b
+    # for K1-K3, rwkv6-3b for K4), and each path's count beside it
     for kname, e in entries.items():
-        e["launches"] = launches[kname]
-
-    phase_profile(torch, engine)
-
-    # -- 5. kernel path vs plain path ------------------------------------------------------------
-    phase_kernel_vs_plain(torch, engine)
+        by_path = {"granite-8b": dense_launches[kname], "rwkv6-3b": rwkv_launches[kname]}
+        e["launches_path"] = "rwkv6-3b" if kname == "wkv6" else "granite-8b"
+        e["launches"] = by_path[e["launches_path"]]
+        e["launches_by_path"] = by_path
 
     log(smi)
     log(json.dumps({"kernels": [entries[k] for k in kcommon.KERNELS]}))

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import common as kcommon
-from repro_torch.models import (ModelConfig, decode_step, init_cache,
+from repro_torch.models import (ModelConfig, decode_step, init_decode_state,
                                 init_params, param_specs, prefill)
 from repro_torch.models.common import resolve_device
 from repro_torch.serve.engine import serving_params
@@ -49,7 +49,7 @@ def main():
     with torch.inference_mode():
         # -- prefill: one pass fills the preallocated KV cache for the batch ----
         t0 = time.time()
-        cache = init_cache(cfg, B, max_seq, device=dev)
+        cache = init_decode_state(cfg, B, max_seq, device=dev)
         logits, cache = prefill(cfg, params, {"tokens": prompts}, cache=cache)
         _sync(dev)
         t_prefill = time.time() - t0

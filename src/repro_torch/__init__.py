@@ -5,8 +5,9 @@ and numpy only — never ``jax`` and never a ``repro`` module; the few jax-free
 pieces it needs (stats windows, the metrics registry) are its own copies.
 Module names mirror ``repro`` so each counterpart is easy to find.
 
-Entry points (``init_params``, ``init_cache``, ``ServeEngine``) run on the
-CUDA card unless the caller passes ``device="cpu"``. On a CUDA tensor every
-kernel wrapper launches its hand-written Hopper kernel (``csrc/``) or
-raises; on a CPU tensor it runs the kernel's plain PyTorch version.
+Entry points (``init_params``, ``init_decode_state``, ``ServeEngine``) run
+on the CUDA card unless the caller passes ``device="cpu"``. On a CUDA
+tensor every kernel wrapper launches its hand-written Hopper kernel
+(``csrc/``) or raises; on a CPU tensor it runs the kernel's plain PyTorch
+version.
 """

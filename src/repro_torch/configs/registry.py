@@ -10,9 +10,9 @@ from typing import Dict, List
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS: List[str] = ["granite_8b"]
+ARCH_IDS: List[str] = ["granite_8b", "rwkv6_3b"]
 
-_ALIASES = {"granite-8b": "granite_8b"}
+_ALIASES = {"granite-8b": "granite_8b", "rwkv6-3b": "rwkv6_3b"}
 
 
 def canonical(arch: str) -> str:

@@ -23,7 +23,7 @@ from typing import Dict, Iterable
 
 import torch
 
-KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
+KERNELS = ("rmsnorm", "flash_attention", "decode_attention", "wkv6")
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"

@@ -1,9 +1,10 @@
 from repro_torch.models.common import ParamSpec, init_params
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import decode_step, forward, param_specs, prefill
-from repro_torch.models.transformer import init_cache
+from repro_torch.models.model import (decode_state_specs, decode_step, forward,
+                                      init_decode_state, param_specs, prefill)
 
 __all__ = [
-    "ModelConfig", "ParamSpec", "init_params", "init_cache", "param_specs",
-    "forward", "prefill", "decode_step",
+    "ModelConfig", "ParamSpec", "init_params", "param_specs",
+    "forward", "prefill", "decode_step", "decode_state_specs",
+    "init_decode_state",
 ]

@@ -1,10 +1,11 @@
 """Family dispatch (port of ``repro.models.model``): one API over the ported
-architecture families — so far only ``dense``.
+architecture families — so far ``dense`` and ``rwkv``.
 
   param_specs(cfg)                         -> ParamSpec tree
   forward(cfg, params, batch)              -> (logits, aux)
-  prefill / decode_step                    -> serving (KV cache from
-                                              transformer.init_cache)
+  decode_state_specs / init_decode_state   -> serving state (KV cache or
+                                              recurrent state)
+  prefill / decode_step                    -> serving
 
 ``batch`` is a dict holding tokens (B, S) int; a ``frontend_embeds`` entry,
 which only the vlm and audio families read, is refused until they are ported.
@@ -15,17 +16,18 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer
+from repro_torch.models.common import resolve_device
 from repro_torch.models.config import ModelConfig
 
 #: where each family that is not ported yet stands in ROADMAP.md, Queue 1
 _NOT_PORTED = {
     "moe": "item 3: MoE",
-    "rwkv": "item 4: RWKV6",
     "hybrid": "item 5: Mamba2 / Zamba2",
     "vlm": "item 6: frontends",
     "audio": "item 6: frontends",
 }
+_PORTED = {"dense": transformer, "rwkv": rwkv6}
 
 
 def _tokens(batch: Dict) -> torch.Tensor:
@@ -36,9 +38,10 @@ def _tokens(batch: Dict) -> torch.Tensor:
     return batch["tokens"]
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "dense":
-        return
+def _family(cfg: ModelConfig):
+    """The model module of ``cfg.family``."""
+    if cfg.family in _PORTED:
+        return _PORTED[cfg.family]
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet "
@@ -47,22 +50,34 @@ def _check_family(cfg: ModelConfig) -> None:
 
 
 def param_specs(cfg: ModelConfig):
-    _check_family(cfg)
-    return transformer.param_specs(cfg)
+    return _family(cfg).param_specs(cfg)
 
 
 def forward(cfg: ModelConfig, params, batch: Dict
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    _check_family(cfg)
-    return transformer.forward(cfg, params, _tokens(batch))
+    return _family(cfg).forward(cfg, params, _tokens(batch))
+
+
+def decode_state_specs(cfg: ModelConfig, batch: int, max_seq: int):
+    """name -> (shape, dtype) of the decode-time state: the KV cache of
+    ``max_seq`` positions, or the recurrent state (independent of it)."""
+    return _family(cfg).state_specs(cfg, batch, max_seq)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
+                      device=None):
+    """Zeroed decode state on ``device`` (the CUDA card by default): the
+    one constructor of a KV cache or recurrent state."""
+    dev = resolve_device(device)
+    return {k: torch.zeros(shape, dtype=dt, device=dev) for k, (shape, dt)
+            in decode_state_specs(cfg, batch, max_seq).items()}
 
 
 def decode_step(cfg: ModelConfig, params, state, tokens, pos: int):
-    _check_family(cfg)
-    return transformer.decode_step(cfg, params, state, tokens, pos)
+    return _family(cfg).decode_step(cfg, params, state, tokens, pos)
 
 
 def prefill(cfg: ModelConfig, params, batch: Dict, cache=None):
-    """Last-position logits + the KV cache (written into ``cache`` if given)."""
-    _check_family(cfg)
-    return transformer.prefill(cfg, params, _tokens(batch), cache=cache)
+    """Last-position logits + the decode state (KV cache or recurrent
+    state), written into ``cache`` if given."""
+    return _family(cfg).prefill(cfg, params, _tokens(batch), cache)

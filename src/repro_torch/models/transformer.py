@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.models.common import (ParamSpec, apply_rope, attention,
                                        cache_update, decode_attention,
-                                       resolve_device, rms_norm, rope_angles,
+                                       rms_norm, rope_angles,
                                        swiglu)
 from repro_torch.models.config import ModelConfig
 
@@ -172,17 +172,10 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor
     return _unembed(cfg, params, h), aux
 
 
-def init_cache_specs(cfg: ModelConfig, batch: int, max_seq: int):
+def state_specs(cfg: ModelConfig, batch: int, max_seq: int):
     """KV-cache structure: {"k", "v"} -> ((L, B, T, G, dh), dtype)."""
     shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
     return {"k": (shape, cfg.cdtype), "v": (shape, cfg.cdtype)}
-
-
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
-    """Zeroed KV cache on ``device`` (the CUDA card by default)."""
-    dev = resolve_device(device)
-    return {k: torch.zeros(shape, dtype=dt, device=dev)
-            for k, (shape, dt) in init_cache_specs(cfg, batch, max_seq).items()}
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache=None):
@@ -195,9 +188,8 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache=None):
     h, cos, sin = _embed_and_rope(cfg, params, tokens)
     B, S = h.shape[:2]
     if cache is None:
-        shape = (cfg.num_layers, B, S, cfg.num_kv_heads, cfg.head_dim)
-        cache = {k: torch.empty(shape, dtype=cfg.cdtype, device=h.device)
-                 for k in ("k", "v")}
+        cache = {k: torch.empty(shape, dtype=dt, device=h.device)
+                 for k, (shape, dt) in state_specs(cfg, B, S).items()}
     if cache["k"].shape[2] < S:
         raise ValueError(f"cache holds {cache['k'].shape[2]} positions, "
                          f"prompt has {S}")

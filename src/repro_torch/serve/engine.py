@@ -26,13 +26,20 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.models import ModelConfig, decode_step, init_cache, prefill
+from repro_torch.models import (ModelConfig, decode_step, init_decode_state,
+                                prefill)
 from repro_torch.models.common import resolve_device
 from repro_torch.obs.registry import COUNTER, GAUGE, StatsView
 
-#: leaves the JAX model casts to compute_dtype on use
-_CAST_ON_LOAD = ("embed", "unembed", "wq", "wk", "wv", "wo", "bq", "bk", "bv",
-                 "w_gate", "w_up", "w_down")
+#: per family, the leaves the JAX model casts to compute_dtype on use (RWKV6
+#: keeps w0 and u fp32, as JAX casts them to float32, and every norm scale)
+_CAST_ON_LOAD = {
+    "dense": ("embed", "unembed", "wq", "wk", "wv", "wo", "bq", "bk", "bv",
+              "w_gate", "w_up", "w_down"),
+    "rwkv": ("embed", "unembed", "w_r", "w_k", "w_v", "w_g", "w_o", "mix_w1",
+             "mix_w2", "mu_base", "mu_rkvgw", "decay_w1", "decay_w2", "cm_k",
+             "cm_v", "cm_r", "cm_mu_k", "cm_mu_r"),
+}
 
 
 @dataclass
@@ -64,10 +71,12 @@ class EngineStats(StatsView):
 def serving_params(cfg: ModelConfig, params, device: torch.device):
     """``params`` on ``device``, with the leaves JAX casts on use already in
     ``cfg.compute_dtype``; every other leaf keeps its dtype."""
+    cast = _CAST_ON_LOAD[cfg.family]
+
     def walk(tree):
         return {k: walk(v) if isinstance(v, dict) else v.to(
                     device=device,
-                    dtype=cfg.cdtype if k in _CAST_ON_LOAD else v.dtype)
+                    dtype=cfg.cdtype if k in cast else v.dtype)
                 for k, v in tree.items()}
 
     return walk(params)
@@ -120,7 +129,7 @@ class ServeEngine:
         ).to(self.device)
 
         t0 = time.monotonic()
-        cache = init_cache(self.cfg, B, self.max_seq, device=self.device)
+        cache = init_decode_state(self.cfg, B, self.max_seq, device=self.device)
         logits, cache = prefill(self.cfg, self.params, {"tokens": prompts},
                                 cache=cache)
         _sync(self.device)

@@ -10,10 +10,11 @@ only PyTorch:
 Tolerances. A kernel against its plain version, as chip_smoke.py checks
 it: each element must hold |kernel - plain| <= 2**-7 |plain| + c RMS, one
 bf16 ulp of the value plus a share c of the RMS of its output vector (the
-last axis): c = 1e-2 for RMSNorm and decode attention, which compute in
-fp32 throughout, and 2e-2 for flash attention, which feeds P to the tensor
-cores in bf16. A fixed 4e-2 would be as large as a decode-attention output
-over 1000 keys. The
+last axis): c = 1e-2 for RMSNorm, decode attention and WKV6's y, which
+compute in fp32 throughout, and 2e-2 for flash attention, which feeds P to
+the tensor cores in bf16. A fixed 4e-2 would be as large as a
+decode-attention output over 1000 keys. WKV6's fp32 state is held to
+1e-3 |plain| + 1e-3 RMS of its row (see WKV_STATE_TOL). The
 model on the card against the model on the CPU runs through different
 weight products, so it keeps the end-to-end bf16 atol = rtol = 4e-2 of
 tests/test_kernels.py.
@@ -29,8 +30,12 @@ from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E40
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
-from repro_torch.models import (ModelConfig, decode_step, init_cache,  # noqa: E402
-                                init_params, param_specs, prefill)
+from repro_torch.kernels.wkv6.ops import wkv6  # noqa: E402
+from repro_torch.kernels.wkv6.ref import wkv6_chunked  # noqa: E402
+from repro_torch.configs.rwkv6_3b import SMOKE_CONFIG as RWKV_SMOKE  # noqa: E402
+from repro_torch.models import (ModelConfig, decode_step,  # noqa: E402
+                                init_decode_state, init_params, param_specs,
+                                prefill)
 from repro_torch.serve.engine import serving_params  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -54,15 +59,29 @@ def _randn(gen, shape, dtype, device):
 KERNEL_RTOL = 2.0 ** -7
 
 
-def _assert_kernel_close(got, want, c):
+#: WKV6's fp32 state, kernel (token by token) against plain (chunks): each
+#: element within 1e-3 |plain| + 1e-3 RMS of its row. The plain version
+#: carries the decay as exp of differences of fp32 cumulative log sums that
+#: reach ~-1800 over a chunk of 64 (log w is clamped at log 1e-12 = -27.6),
+#: whose rounding is ~1e-4 of a decay factor; the rest is fp32 summation
+#: over at most 1000 steps.
+WKV_STATE_TOL = 1e-3
+
+
+def _worst_share(got, want, rtol, c):
+    """The worst element's |got - want| as a share of rtol |want| + c RMS."""
     assert got.dtype == want.dtype and got.shape == want.shape
     g, w = got.float(), want.float()
     assert torch.isfinite(g).all()
     err = (g - w).abs()
     rms = w.pow(2).mean(dim=-1, keepdim=True).sqrt()
-    limit = KERNEL_RTOL * w.abs() + c * rms
-    worst = float((err / limit.clamp_min(1e-30)).max())
-    assert worst <= 1.0, (f"max |err| {float(err.max()):.3e}, worst element "
+    limit = rtol * w.abs() + c * rms
+    return float((err / limit.clamp_min(1e-30)).max()), float(err.max())
+
+
+def _assert_kernel_close(got, want, c, rtol=KERNEL_RTOL):
+    worst, err = _worst_share(got, want, rtol, c)
+    assert worst <= 1.0, (f"max |err| {err:.3e}, worst element "
                           f"at {worst:.2f}x its limit")
 
 
@@ -72,6 +91,7 @@ def _assert_close(got, want):
 
 
 @pytest.mark.parametrize("shape", [(8000, 4096), (8, 4096), (1001, 4096),
+                                   (8000, 2560), (8, 2560),  # rwkv6-3b's D
                                    (3, 7, 256), (2, 64), (1, 8)])
 def test_rmsnorm_kernel_matches_plain(cuda, shape):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -112,6 +132,55 @@ def test_decode_attention_kernel_matches_plain(cuda, B, H, G, dh, T, cur):
                          decode_attention_ref(q, kc, vc, cur), c=1e-2)
 
 
+def _wkv_inputs(gen, B, S, H, dh, dtype, device):
+    """r, k, v unit normal; w from the model's exp(-exp(clip(N, -8, 4)));
+    u ~ 0.3 N; all but u rounded to ``dtype``."""
+    r, k, v = (_randn(gen, (B, S, H, dh), dtype, device) for _ in range(3))
+    n = torch.randn((B, S, H, dh), generator=gen, device=device)
+    w = torch.exp(-torch.exp(n.clamp(-8.0, 4.0))).to(dtype)
+    u = 0.3 * torch.randn((H, dh), generator=gen, device=device)
+    return r, k, v, w, u
+
+
+@pytest.mark.parametrize("B,S,H,dh,dtype", [
+    (2, 200, 8, 64, torch.bfloat16),
+    (3, 45, 5, 64, torch.bfloat16),     # S fills no chunk or tile
+    (1, 1, 1, 64, torch.bfloat16),      # one token
+    (2, 33, 4, 16, torch.bfloat16),     # the smoke model's head_dim
+    (1, 70, 2, 64, torch.float32),
+])
+def test_wkv6_kernel_matches_plain(cuda, B, S, H, dh, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    r, k, v, w, u = _wkv_inputs(gen, B, S, H, dh, dtype, cuda)
+    y, state = wkv6(r, k, v, w, u, 64)
+    py, pstate = wkv6_chunked(r, k, v, w, u, 64)
+    _assert_kernel_close(y, py, c=1e-2)
+    _assert_kernel_close(state, pstate, c=WKV_STATE_TOL, rtol=WKV_STATE_TOL)
+    # negative controls: u zeroed changes y; the last token's k zeroed
+    # changes the state
+    y0, _ = wkv6(r, k, v, w, torch.zeros_like(u), 64)
+    assert _worst_share(y0, py, KERNEL_RTOL, 1e-2)[0] > 1.0
+    k_bad = k.clone()
+    k_bad[:, -1] = 0
+    _, s_bad = wkv6(r, k_bad, v, w, u, 64)
+    assert _worst_share(s_bad, pstate, WKV_STATE_TOL, WKV_STATE_TOL)[0] > 1.0
+
+
+def test_wkv6_refuses_inputs_it_does_not_take(cuda):
+    r = torch.zeros(1, 4, 2, 64, dtype=torch.float16, device=cuda)
+    u = torch.zeros(2, 64, device=cuda)
+    with pytest.raises(ValueError):
+        wkv6(r, r, r, r, u, 64)            # fp16
+    r = r.float()
+    with pytest.raises(ValueError):        # w in another dtype than r
+        wkv6(r, r, r, r.to(torch.bfloat16), u, 64)
+    with pytest.raises(ValueError):        # u not fp32
+        wkv6(r, r, r, r, u.to(torch.bfloat16), 64)
+    r = torch.zeros(1, 4, 2, 8, device=cuda)
+    with pytest.raises(ValueError):        # head_dim 8
+        wkv6(r, r, r, r, torch.zeros(2, 8, device=cuda), 64)
+
+
 def test_kernels_refuse_inputs_they_do_not_take(cuda):
     q = torch.zeros(1, 4, 2, 64, dtype=torch.float16, device=cuda)
     with pytest.raises(ValueError):
@@ -138,7 +207,7 @@ def test_model_on_the_card_launches_the_kernels_and_matches_the_cpu(cuda):
     with torch.inference_mode():
         out = {}
         for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
-            cache = init_cache(cfg, 2, 16, device=dev)
+            cache = init_decode_state(cfg, 2, 16, device=dev)
             logits, cache = prefill(cfg, params, {"tokens": tokens.to(dev)},
                                     cache=cache)
             steps = [logits]
@@ -150,6 +219,37 @@ def test_model_on_the_card_launches_the_kernels_and_matches_the_cpu(cuda):
     L = cfg.num_layers
     assert kcommon.launches == {"rmsnorm": (2 * L + 1) * 4,
                                 "flash_attention": L,
-                                "decode_attention": 3 * L}
+                                "decode_attention": 3 * L,
+                                "wkv6": 0}
+    for a, b in zip(out["cuda"], out["cpu"]):
+        _assert_close(a.cpu(), b)
+
+
+def test_rwkv6_on_the_card_launches_the_kernels_and_matches_the_cpu(cuda):
+    """The rwkv6-3b smoke model (2 layers, head_dim 16): prefill through K4
+    and K2, then three recurrent decode steps through K2 only."""
+    cfg = RWKV_SMOKE
+    cpu_params = serving_params(cfg, init_params(param_specs(cfg), seed=0,
+                                                 device="cpu"), torch.device("cpu"))
+    gpu_params = serving_params(cfg, cpu_params, cuda)
+    tokens = torch.arange(2 * 12).reshape(2, 12) * 7 % cfg.vocab_size
+    out, counts = {}, {}
+    with torch.inference_mode():
+        for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+            kcommon.reset_launches()
+            state = init_decode_state(cfg, 2, 16, device=dev)
+            logits, state = prefill(cfg, params, {"tokens": tokens.to(dev)},
+                                    cache=state)
+            steps = [logits]
+            for i in range(3):
+                logits, state = decode_step(cfg, params, state,
+                                            tokens[:, i].to(dev), 12 + i)
+                steps.append(logits)
+            out[dev] = steps + [state[k] for k in sorted(state)]
+            counts[dev] = dict(kcommon.launches)
+    L = cfg.num_layers
+    assert counts["cpu"] == {name: 0 for name in kcommon.KERNELS}
+    assert counts["cuda"] == {"rmsnorm": (3 * L + 1) * 4, "flash_attention": 0,
+                              "decode_attention": 0, "wkv6": L}
     for a, b in zip(out["cuda"], out["cpu"]):
         _assert_close(a.cpu(), b)

@@ -31,7 +31,7 @@ from repro.models import param_specs as jax_param_specs  # noqa: E402
 from repro.models import prefill as jax_prefill  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import granite_8b  # noqa: E402
-from repro_torch.models import (decode_step, forward, init_cache,  # noqa: E402
+from repro_torch.models import (decode_step, forward, init_decode_state,  # noqa: E402
                                 init_params, param_specs, prefill)
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
@@ -147,7 +147,7 @@ def test_decode_steps_match_jax_in_each_cache_mode(mode, dtype):
     tokens = _tokens(jcfg.vocab_size)
     jstep = jax.jit(functools.partial(jax_decode_step, jcfg))
     jstate = jax_init_decode_state(jcfg, B, S)
-    tcache = init_cache(tcfg, B, S, device="cpu")
+    tcache = init_decode_state(tcfg, B, S, device="cpu")
     for t in range(S):
         jl, jstate = jstep(jparams, jstate, jnp.asarray(tokens[:, t]),
                            jnp.int32(t))
@@ -162,7 +162,7 @@ def test_decode_matches_forward_fp32():
     _, tcfg, _, tparams = _configs("float32")
     tokens = torch.from_numpy(_tokens(tcfg.vocab_size))
     lf, _ = forward(tcfg, tparams, {"tokens": tokens})
-    cache = init_cache(tcfg, B, S, device="cpu")
+    cache = init_decode_state(tcfg, B, S, device="cpu")
     errs = []
     for t in range(S):
         lg, cache = decode_step(tcfg, tparams, cache, tokens[:, t], t)
@@ -174,14 +174,14 @@ def test_prefill_writes_into_a_preallocated_cache():
     _, tcfg, _, tparams = _configs("float32")
     tokens = torch.from_numpy(_tokens(tcfg.vocab_size))
     _, own = prefill(tcfg, tparams, {"tokens": tokens})
-    cache = init_cache(tcfg, B, S + 6, device="cpu")
+    cache = init_decode_state(tcfg, B, S + 6, device="cpu")
     _, same = prefill(tcfg, tparams, {"tokens": tokens}, cache=cache)
     assert same is cache
     assert torch.equal(cache["k"][:, :, :S], own["k"])
     assert torch.all(cache["k"][:, :, S:] == 0)
     with pytest.raises(ValueError):
         prefill(tcfg, tparams, {"tokens": tokens},
-                cache=init_cache(tcfg, B, S - 1, device="cpu"))
+                cache=init_decode_state(tcfg, B, S - 1, device="cpu"))
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
@@ -190,14 +190,14 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_params(param_specs(cfg))
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        init_cache(cfg, 1, 4)
+        init_decode_state(cfg, 1, 4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(cfg, {}, max_seq=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.params_from_numpy({"w": np.zeros(2, np.float32)})
 
 
-@pytest.mark.parametrize("family", ["moe", "rwkv", "hybrid", "vlm", "audio"])
+@pytest.mark.parametrize("family", ["moe", "hybrid", "vlm", "audio"])
 def test_families_not_yet_ported_raise(family):
     cfg = granite_8b.SMOKE_CONFIG.replace(family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
