@@ -162,13 +162,21 @@ def check_rejects(torch, name, got, want, **tol) -> float:
     return share
 
 
-def check_close(torch, name, got, want, tol=E2E_TOL) -> float:
-    err = float((got.float() - want.float()).abs().max())
-    if not torch.isfinite(got.float()).all():
+def check_close(torch, name, got, want, tol=E2E_TOL):
+    """``allclose(atol = rtol = tol)``; returns (max |err|, the worst
+    element's |err| as a share of its limit tol + tol |want|, RMS of the
+    difference over RMS of ``want``)."""
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
         raise AssertionError(f"{name}: non-finite output")
-    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
-        raise AssertionError(f"{name}: max |err| {err:.3e} over tolerance {tol}")
-    return err
+    diff = g - w
+    err = float(diff.abs().max())
+    share = float((diff.abs() / (tol + tol * w.abs())).max())
+    rel_rms = float(diff.pow(2).mean().sqrt() / w.pow(2).mean().sqrt().clamp_min(1e-30))
+    if not torch.allclose(g, w, atol=tol, rtol=tol):
+        raise AssertionError(f"{name}: max |err| {err:.3e} over tolerance {tol} "
+                             f"({share:.2f} of the allclose limit)")
+    return err, share, rel_rms
 
 
 def phase_kernels(torch, F, flush):
@@ -570,14 +578,17 @@ def phase_kernel_vs_plain(torch, name, cfg, params):
         kernel = run()
         with plain_path():
             plain = run()
-    errs = []
+    rows = []
     for i, (a, b) in enumerate(zip(kernel, plain)):
         step = "prefill logits" if i == 0 else f"decode step {i} logits"
-        errs.append(check_close(torch, f"{name} 2-layer {step}", a, b))
+        rows.append(check_close(torch, f"{name} 2-layer {step}", a, b))
     rms = [float(b.float().pow(2).mean().sqrt()) for b in plain]
-    log(f"{name} 2-layer cut, kernels vs plain on the card (bf16, atol = rtol = {E2E_TOL}): "
-        f"max|err| prefill {errs[0]:.3e}, decode steps {[f'{e:.3e}' for e in errs[1:]]}; "
-        f"RMS of the plain logits {[f'{r:.3f}' for r in rms]}")
+    log(f"{name} 2-layer cut, kernels vs plain on the card (bf16, atol = rtol = {E2E_TOL}; "
+        f"prefill, then decode steps 1-{len(rows) - 1}): max|err| "
+        f"{[f'{e:.3e}' for e, _, _ in rows]}; worst element's share of atol + rtol |plain| "
+        f"{[f'{s:.3f}' for _, s, _ in rows]}; RMS(diff) / RMS(plain) "
+        f"{[f'{r:.4f}' for _, _, r in rows]}; RMS of the plain logits "
+        f"{[f'{r:.3f}' for r in rms]}")
 
 
 def main() -> int:

@@ -1,4 +1,4 @@
-// GQA flash-decode for Hopper (sm_90a), bf16 in/out.
+// GQA flash-decode for Hopper (sm_90a), bf16 in/out, one launch per call.
 //
 // Replaces the Pallas TPU kernel repro/kernels/decode_attention/kernel.py
 // (_dec_kernel / decode_attention_fwd). One query token per sequence,
@@ -8,32 +8,74 @@
 //
 // Bound: memory. The valid part of the cache is read once and each byte
 // feeds ~rep multiply-adds, far below the card's flop/byte balance; at the
-// serving shape (B 8, G 8, dh 128, ~1016 valid positions) that is ~33 MB of
-// K and V, ~10 us at 3.35 TB/s.
+// serving shape (B 8, G 8, dh 128, 1016 valid positions) that is 33.4 MB of
+// K and V, 10 us at 3.35 TB/s. What matters is bytes in flight on every SM.
 //
-// Design: B*G = 64 (b, g) pairs would leave most of the 132 SMs idle, so the
-// valid positions are split into chunks of kSplit keys and every
-// (chunk, g, b) gets a block (flash-decode). A block computes its chunk's
-// scores with 16-byte loads (a group of dh/8 lanes per key, reduced with
-// shuffles), a local softmax (max m, sum l), and the un-normalised P V; a
-// second, tiny kernel combines the chunks per (b, head) with the usual
-// exp(m_s - M) weights. cur_index arrives as a host int, so chunks past it
-// are never launched and the ragged tail of the last chunk is masked: T need
-// not divide any tile.
+// Design: a thread-block cluster per (b, g) of `cluster` CTAs (at most
+// kMaxCluster, never more than there are key tiles). The valid positions are
+// cut into tiles of kTile keys; CTA `rank` owns tiles
+// [rank * n_tiles / cluster, (rank + 1) * n_tiles / cluster), at least one.
+// - Copies: thread 0 loads each tile of K and of V with one TMA box (kTile
+//   rows x dh of one kv head; 4-D tensor maps over the cache, csrc/hopper.cuh)
+//   into a kStages ring, K and V on separate mbarriers, so V's copy is in
+//   flight while the scores of the same tile are computed; a stage is
+//   refilled once the block has finished with it.
+// - Math: 16-byte shared loads per thread (dh/8 lanes per key, shuffle
+//   reduced) for the scores of the rep heads; an online softmax across the
+//   CTA's tiles (m, l per head in shared memory, the accumulator rescaled);
+//   P V with each thread owning 8 dims of every head for a share of the keys.
+// - Merge: each CTA leaves (m, l, o) for its rep heads in shared memory; after
+//   a cluster barrier the CTAs read one another's through distributed shared
+//   memory (map_shared_rank) and each writes a share of the output with the
+//   weights 2^(m_rank - max m). No fp32 partials go through device memory
+//   and there is no second kernel.
+// cur_index arrives as a host int, so no CTA is launched past it and the
+// ragged tail of the last tile is masked: T need not divide any tile.
+// At the serving shape: 64 clusters of 8 CTAs, each CTA 4 tiles of 32 keys,
+// 32 KB of ring at dh 128; 4-5 CTAs per SM, so all 512 are resident at once.
+// ptxas (CUDA 12.9, sm_90a): 95 registers at rep 4 (40 / 64 / 167 at rep 1 /
+// 2 / 8, dh 128), no spills.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kSplit = 64;  // keys per block; equals SPLIT in decode_attention/ops.py
+using namespace hopper;
+
+constexpr int kTile = 32;        // keys per copy stage; equals TILE in decode_attention/ops.py
+constexpr int kMaxCluster = 8;   // CTAs per (b, g); equals MAX_CLUSTER in decode_attention/ops.py
+constexpr int kStages = 2;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr float kLog2e = 1.4426950408889634f;
 
 typedef __nv_bfloat16 bf16;
+
+// Byte offsets in dynamic shared memory.
+template <int D, int REP>
+struct Layout {
+    static constexpr int kTileBytes = kTile * D * 2;
+    static constexpr int kK = 0;                                  // + stage * kTileBytes
+    static constexpr int kV = kStages * kTileBytes;               // + stage * kTileBytes
+    static constexpr int kRing = 2 * kStages * kTileBytes;
+    static constexpr int kScores = kRing;                         // float [REP][kTile]
+    static constexpr int kPartO = kScores + REP * kTile * 4;      // float [REP][D]
+    static constexpr int kM = kPartO + REP * D * 4;               // float [REP]
+    static constexpr int kL = kM + REP * 4;                       // float [REP]
+    static constexpr int kAlpha = kL + REP * 4;                   // float [REP]
+    static constexpr int kBar = (kAlpha + REP * 4 + 7) / 8 * 8;   // k_full[], v_full[]
+    static constexpr int kBytes = kBar + 16 * kStages + 128;  // + alignment slack
+    // the end-of-block reduction over warps reuses the ring
+    static_assert(kWarps * REP * D * 4 <= kRing, "reduction fits the ring");
+};
 
 __device__ __forceinline__ void unpack8(const uint4& raw, float (&f)[8]) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -47,22 +89,57 @@ __device__ __forceinline__ void unpack8(const uint4& raw, float (&f)[8]) {
 
 template <int D, int REP>
 __global__ void __launch_bounds__(kThreads)
-decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
-                    const bf16* __restrict__ vc, float* __restrict__ o_part,
-                    float* __restrict__ ml_part, int T, int H, int G, int n_valid,
-                    float scale_log2) {
+decode_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map,
+              const bf16* __restrict__ q, bf16* __restrict__ out, int H, int G, int n_valid,
+              int n_tiles, float scale_log2) {
+    using L = Layout<D, REP>;
     constexpr int kLanesPerKey = D / 8;                    // 16-byte chunks per key row
     constexpr int kKeysPerPass = kThreads / kLanesPerKey;  // keys a block touches at once
-    static_assert(kSplit % kKeysPerPass == 0, "every thread runs the same trip count");
-    __shared__ float sc[REP][kSplit];
-    __shared__ float red[kKeysPerPass][REP][D];
+    static_assert(kTile % kKeysPerPass == 0 && kLanesPerKey <= 32, "even trip counts");
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* smem = smem_raw + ((128u - ((uint32_t)__cvta_generic_to_shared(smem_raw) & 127u)) & 127u);
+    float* sc = reinterpret_cast<float*>(smem + L::kScores);
+    float* part_o = reinterpret_cast<float*>(smem + L::kPartO);
+    float* m_s = reinterpret_cast<float*>(smem + L::kM);
+    float* l_s = reinterpret_cast<float*>(smem + L::kL);
+    float* alpha_s = reinterpret_cast<float*>(smem + L::kAlpha);
+    const uint32_t s_base = (uint32_t)__cvta_generic_to_shared(smem);  // 128-byte aligned
+    auto k_full = [&](int s) { return s_base + L::kBar + 8u * s; };
+    auto v_full = [&](int s) { return s_base + L::kBar + 8u * (kStages + s); };
 
-    const int split = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
-    const int n_split = gridDim.x;
-    const int key0 = split * kSplit;
-    const int chunk = threadIdx.x % kLanesPerKey, slot = threadIdx.x / kLanesPerKey;
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank(), n_rank = (int)cluster.num_blocks();
+    const int g = blockIdx.y, b = blockIdx.z;
+    const int t_begin = rank * n_tiles / n_rank;
+    const int my_tiles = (rank + 1) * n_tiles / n_rank - t_begin;  // >= 1: cluster <= n_tiles
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int chunk = tid % kLanesPerKey, slot = tid / kLanesPerKey;
     const int c0 = chunk * 8;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+    if (tid == 0) {
+        for (int s = 0; s < kStages; ++s) {
+            mbar_init(k_full(s), 1);
+            mbar_init(v_full(s), 1);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    if (tid < REP) {
+        m_s[tid] = -INFINITY;
+        l_s[tid] = 0.f;
+    }
+    __syncthreads();
+
+    // Thread 0 copies local tile i into stage i % kStages: one TMA box of
+    // kTile rows x dh of K and one of V (rows past T arrive as zeros).
+    auto load_tile = [&](int i) {
+        const int s = i % kStages, key0 = (t_begin + i) * kTile;
+        mbar_expect_tx(k_full(s), L::kTileBytes);
+        tma_load_4d(s_base + L::kK + s * L::kTileBytes, &k_map, k_full(s), 0, g, key0, b);
+        mbar_expect_tx(v_full(s), L::kTileBytes);
+        tma_load_4d(s_base + L::kV + s * L::kTileBytes, &v_map, v_full(s), 0, g, key0, b);
+    };
+    if (tid == 0)
+        for (int i = 0; i < min(kStages, my_tiles); ++i) load_tile(i);
 
     // This thread's 8 dims of the REP query heads, scaled into the log2 domain.
     float qr[REP][8];
@@ -73,154 +150,196 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
 #pragma unroll
         for (int j = 0; j < 8; ++j) qr[r][j] *= scale_log2;
     }
-
-    const size_t row_stride = (size_t)G * D;
-    const bf16* kb = kc + ((size_t)b * T * G + g) * D + c0;
-    const bf16* vb = vc + ((size_t)b * T * G + g) * D + c0;
-
-    // 1. Scores of this chunk's keys; keys past cur_index score -inf.
-    for (int kk = slot; kk < kSplit; kk += kKeysPerPass) {
-        const int key = key0 + kk;
-        const bool valid = key < n_valid;
-        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-        if (valid) raw = *reinterpret_cast<const uint4*>(kb + key * row_stride);
-        float kf[8];
-        unpack8(raw, kf);
-#pragma unroll
-        for (int r = 0; r < REP; ++r) {
-            float p = 0.f;
-#pragma unroll
-            for (int j = 0; j < 8; ++j) p += qr[r][j] * kf[j];
-#pragma unroll
-            for (int off = kLanesPerKey / 2; off > 0; off >>= 1)
-                p += __shfl_xor_sync(0xffffffffu, p, off);
-            if (chunk == 0) sc[r][kk] = valid ? p : -INFINITY;
-        }
-    }
-    __syncthreads();
-
-    // 2. Softmax within the chunk, one warp per head. Every launched chunk
-    //    holds at least one valid key, so its max is finite.
-    for (int r = warp; r < REP; r += kWarps) {
-        float m = -INFINITY;
-        for (int i = lane; i < kSplit; i += 32) m = fmaxf(m, sc[r][i]);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-        float l = 0.f;
-        for (int i = lane; i < kSplit; i += 32) {
-            const float p = exp2f(sc[r][i] - m);
-            sc[r][i] = p;
-            l += p;
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
-        if (lane == 0) {
-            const size_t idx = (((size_t)b * G + g) * n_split + split) * REP + r;
-            ml_part[2 * idx] = m;
-            ml_part[2 * idx + 1] = l;
-        }
-    }
-    __syncthreads();
-
-    // 3. Un-normalised P V over this chunk's valid keys.
     float acc[REP][8];
 #pragma unroll
     for (int r = 0; r < REP; ++r)
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
-    for (int kk = slot; kk < kSplit && key0 + kk < n_valid; kk += kKeysPerPass) {
-        float vf[8];
-        unpack8(*reinterpret_cast<const uint4*>(vb + (key0 + kk) * row_stride), vf);
+
+    for (int i = 0; i < my_tiles; ++i) {
+        const int s = i % kStages;
+        const uint32_t parity = (i / kStages) & 1;
+        const int rows = min(kTile, n_valid - (t_begin + i) * kTile);
+        const bf16* ks = reinterpret_cast<const bf16*>(smem + L::kK + s * L::kTileBytes);
+        const bf16* vs = reinterpret_cast<const bf16*>(smem + L::kV + s * L::kTileBytes);
+
+        // 1. Scores; keys past cur_index score -inf.
+        mbar_wait(k_full(s), parity);
+#pragma unroll
+        for (int kk = slot; kk < kTile; kk += kKeysPerPass) {
+            const bool valid = kk < rows;
+            uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+            if (valid) raw = *reinterpret_cast<const uint4*>(ks + kk * D + c0);
+            float kf[8];
+            unpack8(raw, kf);
+#pragma unroll
+            for (int r = 0; r < REP; ++r) {
+                float p = 0.f;
+#pragma unroll
+                for (int j = 0; j < 8; ++j) p += qr[r][j] * kf[j];
+#pragma unroll
+                for (int off = kLanesPerKey / 2; off > 0; off >>= 1)
+                    p += __shfl_xor_sync(0xffffffffu, p, off);
+                if (chunk == 0) sc[r * kTile + kk] = valid ? p : -INFINITY;
+            }
+        }
+        __syncthreads();
+
+        // 2. Online softmax across this CTA's tiles, one warp per head. Every
+        //    tile holds at least one valid key, so the new max is finite.
+        for (int r = warp; r < REP; r += kWarps) {
+            float mx = -INFINITY;
+            for (int kk = lane; kk < kTile; kk += 32) mx = fmaxf(mx, sc[r * kTile + kk]);
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+            const float m_old = m_s[r], m_new = fmaxf(m_old, mx);
+            float l = 0.f;
+            for (int kk = lane; kk < kTile; kk += 32) {
+                const float p = fast_exp2(sc[r * kTile + kk] - m_new);
+                sc[r * kTile + kk] = p;
+                l += p;
+            }
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+            if (lane == 0) {
+                const float alpha = fast_exp2(m_old - m_new);
+                alpha_s[r] = alpha;
+                l_s[r] = l_s[r] * alpha + l;
+                m_s[r] = m_new;
+            }
+        }
+        __syncthreads();
+
+        // 3. Rescale, then accumulate P V over the tile's valid keys.
+        mbar_wait(v_full(s), parity);
 #pragma unroll
         for (int r = 0; r < REP; ++r) {
-            const float p = sc[r][kk];
+            const float a = alpha_s[r];
 #pragma unroll
-            for (int j = 0; j < 8; ++j) acc[r][j] += p * vf[j];
+            for (int j = 0; j < 8; ++j) acc[r][j] *= a;
+        }
+        for (int kk = slot; kk < rows; kk += kKeysPerPass) {
+            float vf[8];
+            unpack8(*reinterpret_cast<const uint4*>(vs + kk * D + c0), vf);
+#pragma unroll
+            for (int r = 0; r < REP; ++r) {
+                const float p = sc[r * kTile + kk];
+#pragma unroll
+                for (int j = 0; j < 8; ++j) acc[r][j] += p * vf[j];
+            }
+        }
+        __syncthreads();  // stage s and the scores are free again
+        if (tid == 0 && i + kStages < my_tiles) {
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            load_tile(i + kStages);
         }
     }
+
+    // This CTA's un-normalised o: sum over the key slots, first within each
+    // warp (shuffles), then across warps through the (now idle) ring.
 #pragma unroll
-    for (int r = 0; r < REP; ++r)
+    for (int off = kLanesPerKey; off < 32; off <<= 1)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) red[slot][r][c0 + j] = acc[r][j];
+        for (int r = 0; r < REP; ++r)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[r][j] += __shfl_xor_sync(0xffffffffu, acc[r][j], off);
+    float* red = reinterpret_cast<float*>(smem);  // [kWarps][REP][D]
+    if (lane < kLanesPerKey) {
+#pragma unroll
+        for (int r = 0; r < REP; ++r)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) red[(warp * REP + r) * D + c0 + j] = acc[r][j];
+    }
     __syncthreads();
-    float* ob = o_part + (((size_t)b * G + g) * n_split + split) * REP * D;
-    for (int i = threadIdx.x; i < REP * D; i += kThreads) {
-        const int r = i / D, d = i % D;
+    for (int e = tid; e < REP * D; e += kThreads) {
         float sum = 0.f;
 #pragma unroll
-        for (int s = 0; s < kKeysPerPass; ++s) sum += red[s][r][d];
-        ob[i] = sum;
+        for (int w = 0; w < kWarps; ++w) sum += red[w * REP * D + e];
+        part_o[e] = sum;
     }
-}
 
-// out[b, g*REP + r] = sum_s w_s o_s / sum_s w_s l_s with w_s = 2^(m_s - max m).
-template <int D, int REP>
-__global__ void __launch_bounds__(D)
-decode_combine_kernel(const float* __restrict__ o_part, const float* __restrict__ ml_part,
-                      bf16* __restrict__ out, int H, int G, int n_split) {
-    const int g = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-    const size_t base = ((size_t)b * G + g) * n_split * REP;
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
+    // Merge the cluster's (m, l, o): out = sum_c w_c o_c / sum_c w_c l_c,
+    // w_c = 2^(m_c - max m). Each CTA writes every n_rank-th share.
+    cluster.sync();
+    for (int e = rank * kThreads + tid; e < REP * D; e += n_rank * kThreads) {
+        const int r = e / D;
         float mx = -INFINITY;
-        for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, ml_part[2 * (base + s * REP + r)]);
+        for (int c = 0; c < n_rank; ++c) mx = fmaxf(mx, *cluster.map_shared_rank(m_s + r, c));
         float num = 0.f, den = 0.f;
-        for (int s = 0; s < n_split; ++s) {
-            const size_t idx = base + s * REP + r;
-            const float w = exp2f(ml_part[2 * idx] - mx);
-            den += w * ml_part[2 * idx + 1];
-            num += w * o_part[idx * D + d];
+        for (int c = 0; c < n_rank; ++c) {
+            const float w = fast_exp2(*cluster.map_shared_rank(m_s + r, c) - mx);
+            den += w * *cluster.map_shared_rank(l_s + r, c);
+            num += w * *cluster.map_shared_rank(part_o + e, c);
         }
-        out[((size_t)b * H + g * REP + r) * D + d] = __float2bfloat16(num / den);
+        out[((size_t)b * H + g * REP) * D + e] = __float2bfloat16(num / den);
     }
+    cluster.sync();  // no CTA leaves while another still reads its shared memory
 }
 
 template <int D, int REP>
-int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* o_part, float* ml_part,
-           int B, int T, int H, int G, int n_valid, float scale_log2, cudaStream_t st) {
-    const int n_split = (n_valid + kSplit - 1) / kSplit;
-    decode_split_kernel<D, REP><<<dim3(n_split, G, B), kThreads, 0, st>>>(
-        q, k, v, o_part, ml_part, T, H, G, n_valid, scale_log2);
-    cudaError_t err = cudaGetLastError();
+int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int T, int H, int G,
+           int n_valid, int n_tiles, int cluster, float scale_log2, cudaStream_t st) {
+    CUtensorMap k_map, v_map;
+    if (!make_map(&k_map, k, B, T, G, D, D, kTile, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+        !make_map(&v_map, v, B, T, G, D, D, kTile, CU_TENSOR_MAP_SWIZZLE_NONE))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int bytes = Layout<D, REP>::kBytes;
+    cudaError_t err = cudaFuncSetAttribute(decode_kernel<D, REP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    decode_combine_kernel<D, REP><<<dim3(G, B), D, 0, st>>>(o_part, ml_part, o, H, G, n_split);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster, G, B);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, decode_kernel<D, REP>, k_map, v_map, q, o, H, G, n_valid,
+                             n_tiles, scale_log2);
+    if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_rep(int rep, const bf16* q, const bf16* k, const bf16* v, bf16* o, float* o_part,
-               float* ml_part, int B, int T, int H, int G, int n_valid, float scale_log2,
-               cudaStream_t st) {
+int launch_rep(int rep, const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int T, int H,
+               int G, int n_valid, int n_tiles, int cluster, float scale_log2, cudaStream_t st) {
     switch (rep) {
-        case 1: return launch<D, 1>(q, k, v, o, o_part, ml_part, B, T, H, G, n_valid, scale_log2, st);
-        case 2: return launch<D, 2>(q, k, v, o, o_part, ml_part, B, T, H, G, n_valid, scale_log2, st);
-        case 4: return launch<D, 4>(q, k, v, o, o_part, ml_part, B, T, H, G, n_valid, scale_log2, st);
-        case 8: return launch<D, 8>(q, k, v, o, o_part, ml_part, B, T, H, G, n_valid, scale_log2, st);
+        case 1: return launch<D, 1>(q, k, v, o, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
+        case 2: return launch<D, 2>(q, k, v, o, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
+        case 4: return launch<D, 4>(q, k, v, o, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
+        case 8: return launch<D, 8>(q, k, v, o, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
 
 }  // namespace
 
-// q: (B, H, dh) bf16; k/v: (B, T, G, dh) bf16; o: (B, H, dh) bf16; o_part:
-// (B, G, n_split, rep, dh) fp32 and ml_part (B, G, n_split, rep, 2) fp32
-// scratch with n_split = ceil(n_valid / kSplit); positions [0, n_valid) are
-// attended. dh in {64, 128}, H / G in {1, 2, 4, 8} (the Python wrapper checks).
-extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                    void* o_part, void* ml_part, int B, int T, int H, int G,
-                                    int dh, int n_valid, float scale, void* stream) {
+// q: (B, H, dh) bf16; k/v: (B, T, G, dh) bf16; o: (B, H, dh) bf16; positions
+// [0, n_valid) are attended, cut into n_tiles = ceil(n_valid / kTile) tiles
+// shared by `cluster` CTAs per (b, g), 1 <= cluster <= min(kMaxCluster,
+// n_tiles). dh in {64, 128}, H / G in {1, 2, 4, 8} (the Python wrapper
+// checks and plans).
+extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
+                                    int T, int H, int G, int dh, int n_valid, int n_tiles,
+                                    int cluster, float scale, void* stream) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const bf16* qp = static_cast<const bf16*>(q);
     const bf16* kp = static_cast<const bf16*>(k);
     const bf16* vp = static_cast<const bf16*>(v);
     bf16* op = static_cast<bf16*>(o);
-    float* opart = static_cast<float*>(o_part);
-    float* mlp = static_cast<float*>(ml_part);
+    if (cluster < 1 || cluster > kMaxCluster || cluster > n_tiles ||
+        (long long)n_tiles * kTile < n_valid || (long long)(n_tiles - 1) * kTile >= n_valid)
+        return static_cast<int>(cudaErrorInvalidValue);
     const float scale_log2 = scale * kLog2e;
     const int rep = H / G;
     if (dh == 128)
-        return launch_rep<128>(rep, qp, kp, vp, op, opart, mlp, B, T, H, G, n_valid, scale_log2, st);
+        return launch_rep<128>(rep, qp, kp, vp, op, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
     if (dh == 64)
-        return launch_rep<64>(rep, qp, kp, vp, op, opart, mlp, B, T, H, G, n_valid, scale_log2, st);
+        return launch_rep<64>(rep, qp, kp, vp, op, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }

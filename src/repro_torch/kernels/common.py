@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exports plain ``extern "C"`` launchers. It is
 compiled with ``nvcc`` for ``sm_90a`` into ``build/kernels/<name>-<hash>.so``
-at the repository root, the hash covering the source and the flags, and
+at the repository root, the hash covering the source, the shared headers
+``csrc/*.cuh`` and the flags, and
 loaded with ``ctypes``: no PyTorch headers are compiled, so a build takes
 seconds. Building happens at first use (or in ``build``), never at import.
 
@@ -68,10 +69,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The build output of ``csrc/<name>.cu``, keyed by that source, the
+    shared headers ``csrc/*.cuh`` it may include, and the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = KERNELS, force: bool = False

@@ -1,9 +1,11 @@
-"""Flash-decode wrapper: CUDA tensor -> ``csrc/decode_attention.cu``;
-CPU tensor -> plain. Serving only, no gradient."""
+"""Flash-decode wrapper: CUDA tensor -> ``csrc/decode_attention.cu`` (one
+launch: a cluster of CTAs per (batch, kv head) that merge in distributed
+shared memory); CPU tensor -> plain. Serving only, no gradient."""
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
@@ -12,12 +14,22 @@ from repro_torch.kernels.common import (aligned16, cdiv, launch, load, on_cpu,
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = {"decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+_ARGTYPES = {"decode_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                       _I, _I, ctypes.c_float, _P]}
 HEAD_DIMS = (64, 128)
 REPS = (1, 2, 4, 8)
-#: keys per split block; must equal SPLIT in csrc/decode_attention.cu
-SPLIT = 64
+#: keys per copy stage; must equal kTile in csrc/decode_attention.cu
+TILE = 32
+#: CTAs per (batch, kv head) cluster; must equal kMaxCluster there
+MAX_CLUSTER = 8
+
+
+def decode_plan(n_valid: int) -> Tuple[int, int]:
+    """``(n_tiles, cluster)`` for ``n_valid`` cache positions: the positions
+    cut into tiles of ``TILE`` keys, shared by ``cluster`` CTAs per (batch,
+    kv head), each CTA taking at least one tile."""
+    n_tiles = cdiv(n_valid, TILE)
+    return n_tiles, min(MAX_CLUSTER, n_tiles)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -43,16 +55,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             "decode_attention kernel takes contiguous 16-byte aligned tensors")
     require(0 <= cur_index and T > 0, f"cur_index {cur_index} must be >= 0")
     n_valid = min(cur_index + 1, T)
-    n_split = cdiv(n_valid, SPLIT)
-    rep = H // G
-    o_part = torch.empty((B, G, n_split, rep, dh), dtype=torch.float32,
-                         device=q.device)
-    ml_part = torch.empty((B, G, n_split, rep, 2), dtype=torch.float32,
-                          device=q.device)
+    n_tiles, cluster = decode_plan(n_valid)
     out = torch.empty_like(q)
     lib = load("decode_attention", _ARGTYPES)
     launch("decode_attention", lib.decode_attention_fwd, q.device,
            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-           out.data_ptr(), o_part.data_ptr(), ml_part.data_ptr(),
-           B, T, H, G, dh, n_valid, 1.0 / math.sqrt(dh))
+           out.data_ptr(), B, T, H, G, dh, n_valid, n_tiles, cluster,
+           1.0 / math.sqrt(dh))
     return out

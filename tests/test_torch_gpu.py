@@ -24,7 +24,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import common as kcommon  # noqa: E402
-from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
+from repro_torch.kernels.decode_attention.ops import (TILE,  # noqa: E402
+                                                      decode_attention)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
@@ -106,6 +107,16 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape):
     (1, 45, 100, 6, 3, 64, False),
     (1, 1, 1, 2, 1, 64, True),
     (1, 130, 130, 8, 8, 64, True),
+    # the 128-row q tile and its edges, rep 1 / 4 / 8
+    (1, 1, 1, 8, 1, 128, True),
+    (1, 127, 127, 4, 1, 128, True),
+    (2, 128, 128, 8, 1, 128, True),
+    (1, 129, 129, 2, 2, 64, True),
+    # T > S without causality, T not a multiple of the 128-key tile
+    (1, 200, 333, 4, 2, 128, False),
+    (2, 1, 300, 4, 2, 64, False),
+    # dh 64 over several q tiles
+    (2, 300, 300, 4, 4, 64, True),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, S, T, H, G, dh, causal):
     gen = torch.Generator(device=cuda).manual_seed(1)
@@ -122,6 +133,14 @@ def test_flash_attention_kernel_matches_plain(cuda, B, S, T, H, G, dh, causal):
     (2, 8, 2, 64, 256, 0),
     (3, 6, 3, 64, 100, 70),
     (1, 8, 1, 128, 700, 699),
+    # n_valid a whole number of tiles, and one key more; rep 1 / 2 / 4 / 8
+    (2, 4, 4, 128, 300, 8 * TILE - 1),
+    (2, 4, 2, 64, 400, 8 * TILE),
+    (1, 16, 2, 128, 512, 3 * TILE - 1),
+    (1, 8, 8, 64, 97, 3 * TILE),
+    # long caches: each CTA of a cluster walks many tiles through its ring
+    (1, 8, 1, 128, 8192, 8191),
+    (2, 32, 8, 128, 8192, 5000),
 ])
 def test_decode_attention_kernel_matches_plain(cuda, B, H, G, dh, T, cur):
     gen = torch.Generator(device=cuda).manual_seed(2)

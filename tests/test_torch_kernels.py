@@ -26,7 +26,8 @@ from repro.kernels.flash_attention.ref import \
 from repro.kernels.rmsnorm import rmsnorm_fwd  # noqa: E402
 from repro.kernels.rmsnorm.ref import rmsnorm_ref as jax_rms_ref  # noqa: E402
 from repro_torch.kernels import common as kcommon  # noqa: E402
-from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
+from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
+    MAX_CLUSTER, TILE, decode_attention, decode_plan)
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
 
@@ -173,3 +174,25 @@ def test_each_kernel_source_exports_its_launcher(name):
     path = kcommon.library_path(name)
     assert path.parent == kcommon.BUILD_DIR
     assert re.fullmatch(rf"{name}-[0-9a-f]{{16}}\.so", path.name)
+
+
+def test_decode_plan_constants_match_the_kernel_source():
+    src = (kcommon.CSRC_DIR / "decode_attention.cu").read_text()
+    assert re.search(rf"constexpr int kTile = {TILE};", src)
+    assert re.search(rf"constexpr int kMaxCluster = {MAX_CLUSTER};", src)
+
+
+@pytest.mark.parametrize("n_valid", [1, TILE - 1, TILE, TILE + 1, 8 * TILE,
+                                     8 * TILE + 1, 1016, 8192])
+def test_decode_plan_gives_every_cta_of_a_cluster_a_tile(n_valid):
+    """The tiles cover exactly the valid positions, and the kernel's split
+    (CTA r of ``cluster`` takes tiles [r n / cluster, (r + 1) n / cluster))
+    leaves no CTA without a tile: none is launched past ``cur_index``."""
+    n_tiles, cluster = decode_plan(n_valid)
+    assert (n_tiles - 1) * TILE < n_valid <= n_tiles * TILE
+    assert 1 <= cluster <= min(MAX_CLUSTER, n_tiles)
+    spans = [(r * n_tiles // cluster, (r + 1) * n_tiles // cluster)
+             for r in range(cluster)]
+    assert spans[0][0] == 0 and spans[-1][1] == n_tiles
+    assert all(end > start for start, end in spans)
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
