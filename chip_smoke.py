@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py            (from the repository root, one CUDA card)
+    python3 chip_smoke.py --kernels rmsnorm,wkv6   (phases 1-3 for those only)
 
 Phases, each of which raises (exit code != 0) on failure:
 
@@ -67,11 +68,12 @@ ROOT = Path(__file__).resolve().parent
 # P in fp32, which adds noise of ~2**-9 of the output's scale per element,
 # up to ~0.7% at the largest of 32 M elements (2%).
 KERNEL_RTOL = 2.0 ** -7
-# WKV6's fp32 state, kernel (token by token) against plain (chunks of 64):
-# rtol = c = 1e-3 of the row's RMS. The plain version carries the decay as
-# exp of differences of fp32 cumulative log sums that reach ~-1800 over a
-# chunk (log w is clamped at log 1e-12 = -27.6), whose rounding is ~1e-4 of
-# a decay factor; the rest is fp32 summation over at most 1000 steps.
+# WKV6's fp32 state, kernel against plain (both chunked, 64 tokens): rtol =
+# c = 1e-3 of the row's RMS. Both carry the decay as exp of differences of
+# fp32 cumulative log sums that reach ~-1800 over a chunk (log w is clamped
+# at log 1e-12 = -27.6), whose rounding is ~1e-4 of a decay factor; the
+# kernel's state product is 3xTF32 (near fp32); the rest is fp32 summation
+# over at most 1000 steps.
 WKV_STATE_TOL = 1e-3
 KERNEL_ATOL_OF_RMS = {"rmsnorm": 1e-2, "decode_attention": 1e-2,
                       "flash_attention": 2e-2, "wkv6": 1e-2}
@@ -82,6 +84,7 @@ E2E_TOL = 4e-2
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_TENSOR_FLOPS = 989e12   # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12           # fp32 outside the tensor cores
+TF32_FLOPS = 495e12          # dense TF32 tensor-core peak
 
 # the serving runs of phases 4 and 5
 BATCH, PROMPT, NEW_TOKENS = 8, 1000, 32
@@ -89,6 +92,7 @@ MAX_SEQ = PROMPT + NEW_TOKENS
 SEED = 0
 # rwkv6-3b's WKV shape: d_model 2560 / head_dim 64, and its rwkv_chunk
 RWKV_HEADS, RWKV_CHUNK = 40, 64
+WKV_CHUNK = 64  # the K4 kernel's own chunk (csrc/wkv6.cu kC)
 
 
 def log(*a):
@@ -162,10 +166,11 @@ def check_rejects(torch, name, got, want, **tol) -> float:
     return share
 
 
-def check_close(torch, name, got, want, tol=E2E_TOL):
-    """``allclose(atol = rtol = tol)``; returns (max |err|, the worst
-    element's |err| as a share of its limit tol + tol |want|, RMS of the
-    difference over RMS of ``want``)."""
+def read_close(torch, name, got, want, tol=E2E_TOL):
+    """``allclose(atol = rtol = tol)`` read, not yet enforced: returns (max
+    |err|, the worst element's |err| as a share of its limit tol + tol
+    |want|, RMS of the difference over RMS of ``want``, whether allclose
+    holds)."""
     g, w = got.float(), want.float()
     if not torch.isfinite(g).all():
         raise AssertionError(f"{name}: non-finite output")
@@ -173,23 +178,12 @@ def check_close(torch, name, got, want, tol=E2E_TOL):
     err = float(diff.abs().max())
     share = float((diff.abs() / (tol + tol * w.abs())).max())
     rel_rms = float(diff.pow(2).mean().sqrt() / w.pow(2).mean().sqrt().clamp_min(1e-30))
-    if not torch.allclose(g, w, atol=tol, rtol=tol):
-        raise AssertionError(f"{name}: max |err| {err:.3e} over tolerance {tol} "
-                             f"({share:.2f} of the allclose limit)")
-    return err, share, rel_rms
+    return err, share, rel_rms, bool(torch.allclose(g, w, atol=tol, rtol=tol))
 
 
-def phase_kernels(torch, F, flush):
-    """Each kernel against its plain version; returns the JSON entries."""
-    from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-    from repro_torch.kernels.wkv6.ops import wkv6
-    from repro_torch.kernels.wkv6.ref import wkv6_chunked
-
+def phase_kernels(torch, F, flush, names):
+    """Each named kernel against its plain version; returns the JSON
+    entries."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
 
@@ -197,8 +191,16 @@ def phase_kernels(torch, F, flush):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     entries = {}
+    for name in names:
+        KERNEL_PHASES[name](torch, F, flush, randn, entries)
+    return entries
 
-    # -- K2 RMSNorm: granite-8b's D 4096, rwkv6-3b's D 2560 --------------------
+
+def kernel_rmsnorm(torch, F, flush, randn, entries):
+    """K2 RMSNorm: granite-8b's D 4096, rwkv6-3b's D 2560."""
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
     for label, rows, dim in (("prefill", BATCH * PROMPT, 4096), ("decode", BATCH, 4096),
                              ("ragged", 1001, 4096), ("rwkv prefill", BATCH * PROMPT, 2560),
                              ("rwkv decode", BATCH, 2560), ("tiny", 3, 64)):
@@ -223,10 +225,19 @@ def phase_kernels(torch, F, flush):
                     max_err_share_of_limit=share, ms=ms,
                     plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
             else:
-                entries["rmsnorm"][label.replace(" ", "_") + "_shape_ms"] = ms
+                key = label.replace(" ", "_")
+                entries["rmsnorm"][key + "_shape_ms"] = ms
+                if label == "rwkv prefill":
+                    entries["rmsnorm"].update({key + "_library_ms": lib,
+                                               key + "_bound_ms": b_ms})
         log(line)
 
-    # -- K1 flash attention -----------------------------------------------------
+
+def kernel_flash_attention(torch, F, flush, randn, entries):
+    """K1 flash attention at granite-8b's prefill shape."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
     for label, (B, S, H, G, dh, causal) in (
             ("prefill", (BATCH, PROMPT, 32, 8, 128, True)),
             ("ragged", (2, 45, 4, 2, 128, True)),
@@ -265,7 +276,12 @@ def phase_kernels(torch, F, flush):
                           flash_attention(q, k, v_bad, causal),
                           flash_attention_ref(q, k, v, causal))
 
-    # -- K3 flash decode ----------------------------------------------------------
+
+def kernel_decode_attention(torch, F, flush, randn, entries):
+    """K3 flash decode at granite-8b's decode shape."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
     cur_main = PROMPT + NEW_TOKENS // 2 - 1
     for label, (B, H, G, dh, T, cur) in (
             ("decode", (BATCH, 32, 8, 128, MAX_SEQ, cur_main)),
@@ -304,7 +320,12 @@ def phase_kernels(torch, F, flush):
                           decode_attention(q, kc, vc, cur - 1),
                           decode_attention_ref(q, kc, vc, cur))
 
-    # -- K4 WKV6 ------------------------------------------------------------------
+
+def kernel_wkv6(torch, F, flush, randn, entries):
+    """K4 WKV6 at rwkv6-3b's prefill shape."""
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ref import wkv6_chunked
+
     for label, (B, S, H, dh) in (("prefill", (BATCH, PROMPT, RWKV_HEADS, 64)),
                                  ("ragged", (3, 45, 5, 64)),
                                  ("one-token", (1, 1, 1, 64))):
@@ -326,11 +347,18 @@ def phase_kernels(torch, F, flush):
             plain = time_ms(torch, lambda: wkv6_chunked(r, k, v, w, u, RWKV_CHUNK),
                             flush, 5)
             nbytes = 5 * r.numel() * 2 + st.numel() * 4 + u.numel() * 4
-            flops = 4.0 * dh * dh * B * S * H  # S update + r^T S: 2 dh^2 FMAs a token
-            b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
+            # the chunked form on the tensor cores: per chunk of C tokens the
+            # inter-chunk and state products (2 C dh^2 each) and the scores
+            # and A v over the C x C block (2 C^2 dh each)
+            chunks = B * H * -(-S // WKV_CHUNK)
+            flops = chunks * 4.0 * WKV_CHUNK * dh * (dh + WKV_CHUNK)
+            b_ms, b_by = bound(nbytes, flops, TF32_FLOPS)
+            old_flops = 4.0 * dh * dh * B * S * H  # the per-step recurrence's FMAs
+            old_ms, old_by = bound(nbytes, old_flops, FP32_FLOPS)
             line += (f"  kernel {ms:.4f} ms  plain {plain:.4f} ms  library none  "
-                     f"bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.2f} GFLOP, "
-                     f"{nbytes / 1e6:.1f} MB)")
+                     f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP at "
+                     f"TF32_FLOPS, {nbytes / 1e6:.1f} MB; the per-step recurrence's "
+                     f"{old_flops / 1e9:.2f} GFLOP at FP32_FLOPS: {old_ms:.4f} ms, {old_by})")
             entries["wkv6"] = dict(
                 name="wkv6", route="cuda", source="src/repro_torch/csrc/wkv6.cu",
                 replaces="src/repro/kernels/wkv6/kernel.py:29",
@@ -347,7 +375,10 @@ def phase_kernels(torch, F, flush):
             check_rejects(torch, "wkv6 prefill state, last token's k zeroed",
                           wkv6(r, k_bad, v, w, u, RWKV_CHUNK)[1], pst,
                           rtol=WKV_STATE_TOL, c=WKV_STATE_TOL)
-    return entries
+
+
+KERNEL_PHASES = {"rmsnorm": kernel_rmsnorm, "flash_attention": kernel_flash_attention,
+          "decode_attention": kernel_decode_attention, "wkv6": kernel_wkv6}
 
 
 def phase_serve(torch, kcommon):
@@ -578,20 +609,30 @@ def phase_kernel_vs_plain(torch, name, cfg, params):
         kernel = run()
         with plain_path():
             plain = run()
-    rows = []
-    for i, (a, b) in enumerate(zip(kernel, plain)):
-        step = "prefill logits" if i == 0 else f"decode step {i} logits"
-        rows.append(check_close(torch, f"{name} 2-layer {step}", a, b))
+    steps = ["prefill logits"] + [f"decode step {i} logits" for i in range(1, len(kernel))]
+    rows = [read_close(torch, f"{name} 2-layer {step}", a, b)
+            for step, a, b in zip(steps, kernel, plain)]
     rms = [float(b.float().pow(2).mean().sqrt()) for b in plain]
     log(f"{name} 2-layer cut, kernels vs plain on the card (bf16, atol = rtol = {E2E_TOL}; "
         f"prefill, then decode steps 1-{len(rows) - 1}): max|err| "
-        f"{[f'{e:.3e}' for e, _, _ in rows]}; worst element's share of atol + rtol |plain| "
-        f"{[f'{s:.3f}' for _, s, _ in rows]}; RMS(diff) / RMS(plain) "
-        f"{[f'{r:.4f}' for _, _, r in rows]}; RMS of the plain logits "
+        f"{[f'{r[0]:.3e}' for r in rows]}; worst element's share of atol + rtol |plain| "
+        f"{[f'{r[1]:.3f}' for r in rows]}; RMS(diff) / RMS(plain) "
+        f"{[f'{r[2]:.4f}' for r in rows]}; RMS of the plain logits "
         f"{[f'{r:.3f}' for r in rms]}")
+    failed = [step for step, r in zip(steps, rows) if not r[3]]
+    if failed:  # every reading is printed first
+        raise AssertionError(f"{name} 2-layer cut: {failed} over the allclose limit "
+                             f"atol = rtol = {E2E_TOL}")
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels", default=None,
+                    help="comma-separated kernel names: build and check only "
+                         "these (phases 1-3) and skip the serving phases")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -605,6 +646,12 @@ def main() -> int:
 
     from repro_torch.kernels import common as kcommon
 
+    names = kcommon.KERNELS if args.kernels is None else tuple(args.kernels.split(","))
+    unknown = set(names) - set(kcommon.KERNELS)
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown kernels {sorted(unknown)}; "
+                         f"choose from {kcommon.KERNELS}")
+
     # -- 1. device ------------------------------------------------------------------
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = nvidia_smi_line()
@@ -615,7 +662,7 @@ def main() -> int:
 
     # -- 2. build -------------------------------------------------------------------
     t0 = time.monotonic()
-    built = kcommon.build(force=True)
+    built = kcommon.build(names, force=True)
     log(f"build: {len(built)} kernels in {time.monotonic() - t0:.1f} s (parallel nvcc, sm_90a)")
     for kname, res in built.items():
         log(f"  {kname}: {res['seconds']:.1f} s")
@@ -625,8 +672,12 @@ def main() -> int:
 
     # -- 3. kernels vs plain ------------------------------------------------------------
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-    entries = phase_kernels(torch, F, flush)
+    entries = phase_kernels(torch, F, flush, names)
     del flush
+    if args.kernels is not None:  # phases 1-3 only: no main-path launches
+        log(smi)
+        log(json.dumps({"kernels": [entries[k] for k in names]}))
+        return 0
 
     # -- 4. granite-8b at full width, its profile and its 2-layer cut ---------------------
     engine, dense_launches = phase_serve(torch, kcommon)

@@ -29,9 +29,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             f"{scale.dtype} {tuple(scale.shape)}")
     require(x.is_contiguous() and scale.is_contiguous(),
             "rmsnorm kernel takes contiguous tensors")
-    require(D % 8 == 0 and aligned16(x),
+    require(D % 8 == 0 and aligned16(x, scale),
             f"rmsnorm kernel loads 16 bytes at a time: D={D} must be a "
-            f"multiple of 8 and x 16-byte aligned")
+            f"multiple of 8 and x and scale 16-byte aligned")
     out = torch.empty_like(x)
     lib = load("rmsnorm", _ARGTYPES)
     launch("rmsnorm", lib.rmsnorm_fwd, x.device, x.data_ptr(),

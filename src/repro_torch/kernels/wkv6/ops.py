@@ -9,7 +9,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.common import launch, load, on_cpu, require
+from repro_torch.kernels.common import aligned16, launch, load, on_cpu, require
 from repro_torch.kernels.wkv6.ref import wkv6_chunked
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -23,8 +23,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     """r/k/v/w: (B, S, H, dh), w the per-step decay in (0, 1); u: (H, dh)
     fp32. Returns (y (B, S, H, dh) in r's dtype, state (B, H, dh, dh) fp32).
 
-    ``chunk`` sets the plain version's blocks of steps; the kernel steps
-    token by token, the same function up to fp32 rounding.
+    ``chunk`` sets the plain version's blocks of steps; the kernel's chunk
+    (64 tokens) and sub-chunk (16) are fixed in ``csrc/wkv6.cu``, the same
+    function up to its TF32 products' rounding.
     """
     if on_cpu(r, k, v, w, u):
         return wkv6_chunked(r, k, v, w, u, chunk)
@@ -42,6 +43,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                              f"got {dh}")
     require(all(t.is_contiguous() for t in (r, k, v, w, u)),
             "wkv6 kernel takes contiguous tensors")
+    require(aligned16(r, k, v, w),
+            "wkv6 kernel copies 16 bytes at a time: r, k, v, w must be "
+            "16-byte aligned")
     y = torch.empty_like(r)
     state = torch.empty((B, H, dh, dh), dtype=torch.float32, device=r.device)
     lib = load("wkv6", _ARGTYPES)

@@ -60,12 +60,12 @@ def _randn(gen, shape, dtype, device):
 KERNEL_RTOL = 2.0 ** -7
 
 
-#: WKV6's fp32 state, kernel (token by token) against plain (chunks): each
-#: element within 1e-3 |plain| + 1e-3 RMS of its row. The plain version
-#: carries the decay as exp of differences of fp32 cumulative log sums that
-#: reach ~-1800 over a chunk of 64 (log w is clamped at log 1e-12 = -27.6),
-#: whose rounding is ~1e-4 of a decay factor; the rest is fp32 summation
-#: over at most 1000 steps.
+#: WKV6's fp32 state, kernel against plain (both chunked, 64 tokens): each
+#: element within 1e-3 |plain| + 1e-3 RMS of its row. Both carry the decay
+#: as exp of differences of fp32 cumulative log sums that reach ~-1800 over
+#: a chunk (log w is clamped at log 1e-12 = -27.6), whose rounding is ~1e-4
+#: of a decay factor; the kernel's state product is 3xTF32 (near fp32); the
+#: rest is fp32 summation over at most 1000 steps.
 WKV_STATE_TOL = 1e-3
 
 
@@ -91,9 +91,17 @@ def _assert_close(got, want):
     torch.testing.assert_close(got.float(), want.float(), atol=4e-2, rtol=4e-2)
 
 
-@pytest.mark.parametrize("shape", [(8000, 4096), (8, 4096), (1001, 4096),
-                                   (8000, 2560), (8, 2560),  # rwkv6-3b's D
-                                   (3, 7, 256), (2, 64), (1, 8)])
+@pytest.mark.parametrize("shape", [
+    (8000, 4096), (8, 4096), (1001, 4096),
+    (8000, 2560), (8, 2560),  # rwkv6-3b's D
+    (3, 7, 256), (2, 64), (1, 8),
+    # the repo's widths up to 16384 (llama3_405b): 1 row and 7 rows spread
+    # each row over up to 16 warps, 1001 rows over 1-4 warps with a ragged
+    # last block
+    *[(rows, dim) for dim in (8, 64, 2560, 4096, 5120, 8192, 16384)
+      for rows in (1, 7, 1001)],
+    (3, 70000),  # wider than 16 warps' registers: walked in slabs
+])
 def test_rmsnorm_kernel_matches_plain(cuda, shape):
     gen = torch.Generator(device=cuda).manual_seed(0)
     x = _randn(gen, shape, torch.bfloat16, cuda)
@@ -151,26 +159,36 @@ def test_decode_attention_kernel_matches_plain(cuda, B, H, G, dh, T, cur):
                          decode_attention_ref(q, kc, vc, cur), c=1e-2)
 
 
-def _wkv_inputs(gen, B, S, H, dh, dtype, device):
-    """r, k, v unit normal; w from the model's exp(-exp(clip(N, -8, 4)));
-    u ~ 0.3 N; all but u rounded to ``dtype``."""
+def _wkv_inputs(gen, B, S, H, dh, dtype, device, decay="model"):
+    """r, k, v unit normal; w from the model's exp(-exp(clip(N, -8, 4))), or
+    every decay at the 1e-12 clamp, or all 1 - 2**-8 (nearly none); u ~ 0.3
+    N; all but u rounded to ``dtype``."""
     r, k, v = (_randn(gen, (B, S, H, dh), dtype, device) for _ in range(3))
     n = torch.randn((B, S, H, dh), generator=gen, device=device)
-    w = torch.exp(-torch.exp(n.clamp(-8.0, 4.0))).to(dtype)
+    w = {"model": torch.exp(-torch.exp(n.clamp(-8.0, 4.0))),
+         "clamped": torch.full_like(n, 1e-12),
+         "nearly none": torch.full_like(n, 1.0 - 2.0 ** -8)}[decay].to(dtype)
     u = 0.3 * torch.randn((H, dh), generator=gen, device=device)
     return r, k, v, w, u
 
 
-@pytest.mark.parametrize("B,S,H,dh,dtype", [
-    (2, 200, 8, 64, torch.bfloat16),
-    (3, 45, 5, 64, torch.bfloat16),     # S fills no chunk or tile
-    (1, 1, 1, 64, torch.bfloat16),      # one token
-    (2, 33, 4, 16, torch.bfloat16),     # the smoke model's head_dim
-    (1, 70, 2, 64, torch.float32),
+@pytest.mark.parametrize("B,S,H,dh,dtype,decay", [
+    (2, 200, 8, 64, torch.bfloat16, "model"),
+    (3, 45, 5, 64, torch.bfloat16, "model"),     # S fills no chunk
+    (1, 1, 1, 64, torch.bfloat16, "model"),      # one token
+    (2, 33, 4, 16, torch.bfloat16, "model"),     # the smoke model's head_dim
+    (1, 70, 2, 64, torch.float32, "model"),
+    # the 16-token sub-chunk's and the 64-token chunk's edges
+    *[(2, S, 4, 64, torch.bfloat16, "model") for S in (15, 16, 17, 63, 64, 65, 129)],
+    (2, 129, 4, 64, torch.bfloat16, "clamped"),  # every decay clamped
+    (2, 129, 4, 64, torch.bfloat16, "nearly none"),
+    (2, 200, 4, 16, torch.bfloat16, "model"),    # dh 16 over several chunks
+    (2, 200, 4, 64, torch.float32, "model"),
+    (8, 1000, 8, 64, torch.bfloat16, "model"),   # the serving length
 ])
-def test_wkv6_kernel_matches_plain(cuda, B, S, H, dh, dtype):
+def test_wkv6_kernel_matches_plain(cuda, B, S, H, dh, dtype, decay):
     gen = torch.Generator(device=cuda).manual_seed(3)
-    r, k, v, w, u = _wkv_inputs(gen, B, S, H, dh, dtype, cuda)
+    r, k, v, w, u = _wkv_inputs(gen, B, S, H, dh, dtype, cuda, decay)
     y, state = wkv6(r, k, v, w, u, 64)
     py, pstate = wkv6_chunked(r, k, v, w, u, 64)
     _assert_kernel_close(y, py, c=1e-2)
@@ -212,6 +230,9 @@ def test_kernels_refuse_inputs_they_do_not_take(cuda):
     with pytest.raises(ValueError):        # D not a multiple of 8
         rmsnorm(torch.zeros(2, 6, dtype=torch.bfloat16, device=cuda),
                 torch.ones(6, device=cuda))
+    with pytest.raises(ValueError):        # scale not 16-byte aligned
+        rmsnorm(torch.zeros(2, 8, dtype=torch.bfloat16, device=cuda),
+                torch.ones(9, device=cuda)[1:])
 
 
 def test_model_on_the_card_launches_the_kernels_and_matches_the_cpu(cuda):
