@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            (from the repository root, one CUDA card)
     python3 chip_smoke.py --kernels rmsnorm,wkv6   (phases 1-3 for those only)
+    python3 chip_smoke.py --skip-serving           (phases 1-3 and 6-8)
 
 Phases, each of which raises (exit code != 0) on failure:
 
@@ -38,11 +39,32 @@ Phases, each of which raises (exit code != 0) on failure:
    RMSNorm and no WKV6 per decode step, no attention kernel. The granite
    engine is freed first.
 
+6. Training at full width: granite-8b cut to 8 of its 36 layers (fp32
+   parameters, gradients and Adam moments of all 36 would take 132 GB) takes
+   3 AdamW steps on one batch of 4 x 1024 tokens through
+   ``repro_torch.train.make_train_step`` (remat on, one microbatch). Per
+   step: loss, grad norm, learning rate, step ms (host clock to a
+   synchronise), tokens/s and launches against the count expected from the
+   config: with remat each forward kernel launches in the forward and again
+   in the layer's recompute, and the final norm, outside the layers, once.
+   Then one step under torch.profiler (its 8 largest device lines, the
+   device-busy share, each forward kernel's share) with CUDA events around
+   each backward rule and the AdamW update, which give their shares.
+7. The same for rwkv6-3b at full width and depth (32 layers).
+8. One train step's loss, gradients and grad norm on a 2-layer full-width
+   cut of each model, kernel path against plain path (``plain_path``), from
+   the same fp32 parameters and batch: loss within TRAIN_LOSS_RTOL, each
+   gradient leaf's RMS(diff) / RMS(plain) within GRAD_RMS_TOL, grad norm
+   within GRAD_NORM_RTOL; one negative control per model changes only one
+   kernel's backward rule (K1's recompute without the causal mask; K4's on
+   time-reversed inputs), and the check must refuse it.
+
 The last lines are the ``nvidia-smi`` name/power-limit line as it prints
 it, one JSON object with every kernel's numbers, and ``{"ok": true,
-"device": {...}}``. A kernel's ``launches`` is its count on the path it was
-ported for (granite-8b for RMSNorm and both attention kernels, rwkv6-3b for
-WKV6); ``launches_by_path`` gives each path's count.
+"device": {...}}``. A kernel's ``launches`` is its count on the serving path
+it was ported for (granite-8b for RMSNorm and both attention kernels,
+rwkv6-3b for WKV6); ``launches_by_path`` gives each path's count, the
+training paths' over their 3 steps.
 """
 from __future__ import annotations
 
@@ -94,6 +116,22 @@ SEED = 0
 RWKV_HEADS, RWKV_CHUNK = 40, 64
 WKV_CHUNK = 64  # the K4 kernel's own chunk (csrc/wkv6.cu kC)
 
+# the training runs of phases 6-8
+TRAIN_GB, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 3
+GRANITE_TRAIN_LAYERS = 8  # of 36: 16 B a parameter of fp32 state must fit 80 GB
+RWKV_TRAIN_LAYERS = 32    # all of them
+TRAIN_OPT = dict(learning_rate=1e-4, warmup_steps=1, total_steps=10)
+# Phase 8's bounds, kernel path against plain path. The backward rules are
+# the same plain functions on both paths, so the gradients differ only
+# through the forward kernels' outputs; the forward 2-layer cuts read
+# RMS(diff) / RMS(plain) 0.005-0.009, so 5e-2 leaves about 5x.
+TRAIN_LOSS_RTOL = 1e-3
+GRAD_RMS_TOL = 5e-2
+GRAD_NORM_RTOL = 1e-2
+# the forward kernels' names as the profiler lists them
+KERNEL_SYMBOLS = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "fa_fwd_kernel",
+                  "decode_attention": "decode_kernel", "wkv6": "wkv6_kernel"}
+
 
 def log(*a):
     print(*a, flush=True)
@@ -123,6 +161,20 @@ def time_ms(torch, fn, flush, iters: int, warmup: int = 3) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def host_us(torch, fn, iters: int = 2000) -> float:
+    """Mean wall time of one call of ``fn`` in a loop of ``iters`` calls, in
+    microseconds: the host's cost per call where the kernel is shorter than
+    the launch."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e6
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -197,19 +249,22 @@ def phase_kernels(torch, F, flush, names):
 
 
 def kernel_rmsnorm(torch, F, flush, randn, entries):
-    """K2 RMSNorm: granite-8b's D 4096, rwkv6-3b's D 2560."""
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    """K2 RMSNorm: granite-8b's D 4096, rwkv6-3b's D 2560, at the serving
+    and the training rows. Timed through the launcher ``rmsnorm_fwd``."""
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_fwd
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
+    train_rows = TRAIN_GB * TRAIN_SEQ
     for label, rows, dim in (("prefill", BATCH * PROMPT, 4096), ("decode", BATCH, 4096),
                              ("ragged", 1001, 4096), ("rwkv prefill", BATCH * PROMPT, 2560),
-                             ("rwkv decode", BATCH, 2560), ("tiny", 3, 64)):
+                             ("rwkv decode", BATCH, 2560), ("tiny", 3, 64),
+                             ("train", train_rows, 4096), ("rwkv train", train_rows, 2560)):
         x, w = randn(rows, dim), randn(dim, dtype=torch.float32)
         err, share = check_kernel(torch, f"rmsnorm {label}", rmsnorm(x, w),
                                   rmsnorm_ref(x, w))
         line = f"rmsnorm {label} ({rows}, {dim}): max|err| {err:.3e} ({share:.2f} of limit)"
         if label in ("prefill", "decode", "rwkv prefill"):
-            ms = time_ms(torch, lambda: rmsnorm(x, w), flush, 50)
+            ms = time_ms(torch, lambda: rmsnorm_fwd(x, w), flush, 50)
             plain = time_ms(torch, lambda: rmsnorm_ref(x, w), flush, 20)
             wb = w.to(x.dtype)
             lib = time_ms(torch, lambda: F.rms_norm(x, (dim,), wb, 1e-5), flush, 50)
@@ -227,6 +282,13 @@ def kernel_rmsnorm(torch, F, flush, randn, entries):
             else:
                 key = label.replace(" ", "_")
                 entries["rmsnorm"][key + "_shape_ms"] = ms
+                if label == "decode":  # what the autograd Function adds a call
+                    fn_us = host_us(torch, lambda: rmsnorm(x, w))
+                    bare_us = host_us(torch, lambda: rmsnorm_fwd(x, w))
+                    line += (f"  host a call: through the Function {fn_us:.2f} us, "
+                             f"the launcher alone {bare_us:.2f} us")
+                    entries["rmsnorm"].update(decode_host_us_function=fn_us,
+                                              decode_host_us_launcher=bare_us)
                 if label == "rwkv prefill":
                     entries["rmsnorm"].update({key + "_library_ms": lib,
                                                key + "_bound_ms": b_ms})
@@ -234,12 +296,15 @@ def kernel_rmsnorm(torch, F, flush, randn, entries):
 
 
 def kernel_flash_attention(torch, F, flush, randn, entries):
-    """K1 flash attention at granite-8b's prefill shape."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    """K1 flash attention at granite-8b's prefill and training shapes.
+    Timed through the launcher ``flash_attention_fwd``."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_attention_fwd)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     for label, (B, S, H, G, dh, causal) in (
             ("prefill", (BATCH, PROMPT, 32, 8, 128, True)),
+            ("train", (TRAIN_GB, TRAIN_SEQ, 32, 8, 128, True)),
             ("ragged", (2, 45, 4, 2, 128, True)),
             ("full", (2, 100, 6, 3, 64, False)),
             ("tiny", (1, 5, 2, 1, 64, True))):
@@ -250,7 +315,7 @@ def kernel_flash_attention(torch, F, flush, randn, entries):
         line = (f"flash_attention {label} q{(B, S, H, dh)} kv{(B, S, G, dh)}: "
                 f"max|err| {err:.3e} ({share:.2f} of limit)")
         if label == "prefill":
-            ms = time_ms(torch, lambda: flash_attention(q, k, v, causal), flush, 20)
+            ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal), flush, 20)
             plain = time_ms(torch, lambda: flash_attention_ref(q, k, v, causal), flush, 5)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -322,11 +387,13 @@ def kernel_decode_attention(torch, F, flush, randn, entries):
 
 
 def kernel_wkv6(torch, F, flush, randn, entries):
-    """K4 WKV6 at rwkv6-3b's prefill shape."""
-    from repro_torch.kernels.wkv6.ops import wkv6
+    """K4 WKV6 at rwkv6-3b's prefill and training shapes. Timed through the
+    launcher ``wkv6_fwd``."""
+    from repro_torch.kernels.wkv6.ops import wkv6, wkv6_fwd
     from repro_torch.kernels.wkv6.ref import wkv6_chunked
 
     for label, (B, S, H, dh) in (("prefill", (BATCH, PROMPT, RWKV_HEADS, 64)),
+                                 ("train", (TRAIN_GB, TRAIN_SEQ, RWKV_HEADS, 64)),
                                  ("ragged", (3, 45, 5, 64)),
                                  ("one-token", (1, 1, 1, 64))):
         r, k, v = randn(B, S, H, dh), randn(B, S, H, dh), randn(B, S, H, dh)
@@ -343,7 +410,7 @@ def kernel_wkv6(torch, F, flush, randn, entries):
                 f"({share:.2f} of limit), state max|err| {s_err:.3e} "
                 f"({s_share:.2f} of limit)")
         if label == "prefill":
-            ms = time_ms(torch, lambda: wkv6(r, k, v, w, u, RWKV_CHUNK), flush, 20)
+            ms = time_ms(torch, lambda: wkv6_fwd(r, k, v, w, u, RWKV_CHUNK), flush, 20)
             plain = time_ms(torch, lambda: wkv6_chunked(r, k, v, w, u, RWKV_CHUNK),
                             flush, 5)
             nbytes = 5 * r.numel() * 2 + st.numel() * 4 + u.numel() * 4
@@ -514,8 +581,6 @@ def phase_profile(torch, name, cfg, params):
     """Where serving time goes: device-busy share of one prefill and of 8
     decode steps (torch.profiler, CUDA activity only), and the kernels that
     take the most device time."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.models import decode_step, init_decode_state, prefill
 
     gen = torch.Generator(device="cuda")
@@ -535,21 +600,31 @@ def phase_profile(torch, name, cfg, params):
                 tok.cpu()
 
         for label, fn in (("prefill", run_prefill), ("8 decode steps", run_decode)):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t0 = time.monotonic()
-                fn()
-                torch.cuda.synchronize()
-                wall = time.monotonic() - t0
-            rows = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
-                           if e.self_device_time_total > 0), reverse=True)
-            busy = sum(t for t, _ in rows) / 1e6
-            if busy <= 0:
-                raise AssertionError(f"profile {name} {label}: the profiler saw no device time")
-            log(f"profile {name} {label}: wall {wall * 1e3:.2f} ms (profiler on), device busy "
-                f"{busy * 1e3:.2f} ms = {busy / wall:.1%} of wall")
-            for t, key in rows[:8]:
-                log(f"    {t / 1e3:9.3f} ms  {t / 1e6 / busy:6.1%}  {key[:90]}")
+            device_profile(torch, f"{name} {label}", fn)
+
+
+def device_profile(torch, label, fn):
+    """Run ``fn`` once under torch.profiler (CUDA activity only); log the
+    wall, the device-busy share and the 8 largest device lines. Returns
+    (rows as (device us, key), busy s)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    rows = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
+                   if e.self_device_time_total > 0), reverse=True)
+    busy = sum(t for t, _ in rows) / 1e6
+    if busy <= 0:
+        raise AssertionError(f"profile {label}: the profiler saw no device time")
+    log(f"profile {label}: wall {wall * 1e3:.2f} ms (profiler on), device busy "
+        f"{busy * 1e3:.2f} ms = {busy / wall:.1%} of wall")
+    for t, key in rows[:8]:
+        log(f"    {t / 1e3:9.3f} ms  {t / 1e6 / busy:6.1%}  {key[:90]}")
+    return rows, busy
 
 
 @contextlib.contextmanager
@@ -625,6 +700,224 @@ def phase_kernel_vs_plain(torch, name, cfg, params):
                              f"atol = rtol = {E2E_TOL}")
 
 
+def leaf_paths(tree, prefix=""):
+    """Dotted paths of a parameter tree's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k], f"{prefix}{k}.")]
+    return [prefix[:-1]]
+
+
+def expected_train_launches(cfg):
+    """Kernel launches of one train step with remat: each forward kernel in
+    the forward and again in its layer's recompute; the final norm, outside
+    the layers, once."""
+    per_layer = ({"rmsnorm": 3, "wkv6": 1} if cfg.family == "rwkv"
+                 else {"rmsnorm": 2, "flash_attention": 1})
+    want = {"rmsnorm": 1, "flash_attention": 0, "decode_attention": 0, "wkv6": 0}
+    for name, n in per_layer.items():
+        want[name] += 2 * n * cfg.num_layers
+    return want
+
+
+@contextlib.contextmanager
+def swapped(mod, name, fn):
+    """``mod.name`` replaced by ``fn(original)`` inside the block."""
+    saved = getattr(mod, name)
+    setattr(mod, name, fn(saved))
+    try:
+        yield
+    finally:
+        setattr(mod, name, saved)
+
+
+@contextlib.contextmanager
+def timed_rules(torch):
+    """Bracket every call of each backward rule and of the AdamW update
+    with CUDA events (a measuring device of this script only). Yields
+    {name: [(start, end), ...]}."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.train import step as step_mod
+
+    targets = {"rmsnorm_bwd": rms_ops, "flash_attention_bwd": fa_ops,
+               "wkv6_bwd": wkv_ops, "adamw_update": step_mod}
+    events = {name: [] for name in targets}
+
+    def timed(name):
+        def wrap(fn):
+            def run(*a, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*a, **kw)
+                end.record()
+                events[name].append((start, end))
+                return out
+            return run
+        return wrap
+
+    with contextlib.ExitStack() as stack:
+        for name, mod in targets.items():
+            stack.enter_context(swapped(mod, name, timed(name)))
+        yield events
+
+
+def phase_train(torch, kcommon, label, cfg):
+    """Full-width training: TRAIN_STEPS AdamW steps on one batch, then one
+    profiled step. Returns the launches of the TRAIN_STEPS steps."""
+    import numpy as np
+
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train import (OptimizerConfig, StepConfig, init_opt_state,
+                                   make_train_step)
+
+    t0 = time.monotonic()
+    params = init_params(param_specs(cfg), seed=SEED, device="cuda")
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    n = cfg.param_count()
+    log(f"{label} train: {cfg.num_layers} layers, d_model {cfg.d_model}, {n / 1e9:.3f} B "
+        f"params; fp32 params, grads, m and v {16 * n / 1e9:.1f} GB; init "
+        f"{time.monotonic() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (TRAIN_GB, TRAIN_SEQ))).cuda()}
+    step = make_train_step(cfg, OptimizerConfig(**TRAIN_OPT), StepConfig(microbatches=1))
+    samples = [p.view(-1)[:4096].clone() for p in tree_leaves(params)]
+    want = expected_train_launches(cfg)
+    tokens = TRAIN_GB * TRAIN_SEQ
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kcommon.reset_launches()
+    readings, before = [], dict(kcommon.launches)
+    for i in range(TRAIN_STEPS):
+        t0 = time.monotonic()
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        now = dict(kcommon.launches)
+        per_step = {k: now[k] - before[k] for k in now}
+        before = now
+        m = {k: float(v) for k, v in metrics.items()}
+        readings.append((m, per_step))
+        log(f"{label} train step {i + 1}: loss {m['loss']:.6f}  grad_norm {m['grad_norm']:.6f}"
+            f"  lr {m['lr']:.3e}  {wall * 1e3:.2f} ms  {tokens / wall:.1f} tokens/s  "
+            f"launches {per_step}")
+    launches = dict(kcommon.launches)
+    peak = torch.cuda.max_memory_allocated()
+    moved = sum(bool((p.view(-1)[:4096] != s).any())
+                for p, s in zip(tree_leaves(params), samples))
+    log(f"{label} train: max_memory_allocated {peak / 2**30:.2f} GiB; launches per step "
+        f"expected {want}; leaves whose first 4096 elements moved: {moved} of {len(samples)}")
+
+    # one more step, profiled, with each backward rule and AdamW bracketed
+    with timed_rules(torch) as events:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+
+        def run():
+            nonlocal params, opt
+            start.record()
+            params, opt, _ = step(params, opt, batch)
+            end.record()
+
+        rows, busy = device_profile(torch, f"{label} train step", run)
+    step_ms = start.elapsed_time(end)
+    parts = {name: sum(s.elapsed_time(e) for s, e in ev) for name, ev in events.items()}
+    parts.update({f"{k} forward kernel": sum(t for t, key in rows if sym in key) / 1e3
+                  for k, sym in KERNEL_SYMBOLS.items() if want[k]})
+    log(f"{label} train step, device time by part (CUDA events around each backward rule "
+        f"and AdamW; the profiler's kernel lines for the forward kernels): step {step_ms:.2f} ms; "
+        + "; ".join(f"{k} {v:.2f} ms = {v / step_ms:.1%}" for k, v in parts.items()))
+
+    bad = [i + 1 for i, (m, per_step) in enumerate(readings)
+           if per_step != want or not all(np.isfinite([m["loss"], m["grad_norm"]]))]
+    if bad or moved != len(samples):
+        raise AssertionError(f"{label} train: steps {bad} have non-finite loss or grad norm "
+                             f"or launches other than {want}; {moved} of {len(samples)} "
+                             f"leaves moved")
+    return launches
+
+
+def phase_train_vs_plain(torch, label, cfg, control_name, control):
+    """A 2-layer full-width cut: one train step's loss, gradients and grad
+    norm, kernel path against plain path, and a negative control that must
+    be refused."""
+    import numpy as np
+
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train import global_norm, loss_and_grads
+
+    cfg = cfg.replace(num_layers=2)
+    params = init_params(param_specs(cfg), seed=SEED + 2, device="cuda")
+    rng = np.random.default_rng(SEED + 1)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (TRAIN_GB, TRAIN_SEQ))).cuda()}
+    names = leaf_paths(params)
+
+    def run():
+        loss, _, grads = loss_and_grads(cfg, params, batch)
+        return float(loss), tree_leaves(grads), float(global_norm(grads))
+
+    with plain_path():
+        p_loss, p_grads, p_norm = run()
+
+    def readings(tag, got):
+        loss, grads, gnorm = got
+        rows = []
+        for name, g, w in zip(names, grads, p_grads):
+            diff = (g.float() - w.float())
+            rms_w = float(w.float().pow(2).mean().sqrt())
+            rel = float(diff.pow(2).mean().sqrt()) / max(rms_w, 1e-30)
+            rows.append((name, float(diff.abs().max()), float(w.float().abs().max()), rel))
+        loss_rel = abs(loss - p_loss) / abs(p_loss)
+        norm_rel = abs(gnorm - p_norm) / p_norm
+        worst = max(r[3] for r in rows)
+        log(f"{label} 2-layer train step, {tag} vs plain: loss {loss:.6f} vs {p_loss:.6f} "
+            f"(rel {loss_rel:.3e}, bound {TRAIN_LOSS_RTOL}); grad_norm {gnorm:.6f} vs "
+            f"{p_norm:.6f} (rel {norm_rel:.3e}, bound {GRAD_NORM_RTOL}); worst leaf "
+            f"RMS(diff)/RMS(plain) {worst:.4e} (bound {GRAD_RMS_TOL})")
+        for name, err, top, rel in rows:
+            log(f"    {name:24s} max|diff| {err:.3e} (max|plain| {top:.3e})  "
+                f"RMS(diff)/RMS(plain) {rel:.4e}")
+        return (loss_rel <= TRAIN_LOSS_RTOL and norm_rel <= GRAD_NORM_RTOL
+                and worst <= GRAD_RMS_TOL)
+
+    kernel_ok = readings("kernels", run())
+    with control():
+        control_ok = readings(f"control ({control_name})", run())
+    if not kernel_ok or control_ok:  # every reading is printed first
+        raise AssertionError(f"{label} 2-layer train step: kernels within bounds {kernel_ok}, "
+                             f"control ({control_name}) within bounds {control_ok}")
+    log(f"  control {label} ({control_name}): refused")
+
+
+def control_k1_without_mask():
+    """K1's backward rule recomputes attention without the causal mask."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    return swapped(fa_ops, "flash_attention_bwd",
+                   lambda bwd: lambda q, k, v, causal, g: bwd(q, k, v, False, g))
+
+
+def control_k4_time_reversed():
+    """K4's backward rule runs on time-reversed inputs (and cotangent) and
+    reverses its gradients back: the recurrence read backwards."""
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+
+    def wrap(bwd):
+        def reversed_bwd(r, k, v, w, u, chunk, g):
+            dr, dk, dv, dw, du = bwd(*(t.flip(1) for t in (r, k, v, w)), u, chunk, g.flip(1))
+            return dr.flip(1), dk.flip(1), dv.flip(1), dw.flip(1), du
+        return reversed_bwd
+
+    return swapped(wkv_ops, "wkv6_bwd", wrap)
+
+
 def main() -> int:
     import argparse
 
@@ -632,6 +925,8 @@ def main() -> int:
     ap.add_argument("--kernels", default=None,
                     help="comma-separated kernel names: build and check only "
                          "these (phases 1-3) and skip the serving phases")
+    ap.add_argument("--skip-serving", action="store_true",
+                    help="run phases 1-3 and the training phases 6-8 only")
     args = ap.parse_args()
     import torch
 
@@ -679,26 +974,54 @@ def main() -> int:
         log(json.dumps({"kernels": [entries[k] for k in names]}))
         return 0
 
-    # -- 4. granite-8b at full width, its profile and its 2-layer cut ---------------------
-    engine, dense_launches = phase_serve(torch, kcommon)
-    phase_profile(torch, "granite-8b", engine.cfg, engine.params)
-    phase_kernel_vs_plain(torch, "granite-8b", engine.cfg, engine.params)
-    del engine
-    gc.collect()
-    torch.cuda.empty_cache()
+    from repro_torch.configs.registry import get_config
 
-    # -- 5. rwkv6-3b at full width, its profile and its 2-layer cut -----------------------
-    cfg, params, rwkv_launches = phase_serve_rwkv(torch, kcommon)
-    phase_profile(torch, "rwkv6-3b", cfg, params)
-    phase_kernel_vs_plain(torch, "rwkv6-3b", cfg, params)
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    # launches: each kernel's count on the path it was ported for (granite-8b
-    # for K1-K3, rwkv6-3b for K4), and each path's count beside it
+    paths = {}  # path -> its launches
+    if not args.skip_serving:
+        # -- 4. granite-8b at full width, its profile and its 2-layer cut -----------------
+        engine, paths["granite-8b"] = phase_serve(torch, kcommon)
+        phase_profile(torch, "granite-8b", engine.cfg, engine.params)
+        phase_kernel_vs_plain(torch, "granite-8b", engine.cfg, engine.params)
+        del engine
+        free()
+
+        # -- 5. rwkv6-3b at full width, its profile and its 2-layer cut -------------------
+        cfg, params, paths["rwkv6-3b"] = phase_serve_rwkv(torch, kcommon)
+        phase_profile(torch, "rwkv6-3b", cfg, params)
+        phase_kernel_vs_plain(torch, "rwkv6-3b", cfg, params)
+        del cfg, params
+        free()
+
+    # -- 6. granite-8b training, full width, 8 of 36 layers --------------------------------
+    granite, rwkv = get_config("granite_8b"), get_config("rwkv6_3b")
+    paths["granite-8b train"] = phase_train(
+        torch, kcommon, "granite-8b", granite.replace(num_layers=GRANITE_TRAIN_LAYERS))
+    free()
+
+    # -- 7. rwkv6-3b training, full width and depth ----------------------------------------
+    paths["rwkv6-3b train"] = phase_train(
+        torch, kcommon, "rwkv6-3b", rwkv.replace(num_layers=RWKV_TRAIN_LAYERS))
+    free()
+
+    # -- 8. one train step of each 2-layer cut, kernels vs plain, with a control ------------
+    phase_train_vs_plain(torch, "granite-8b", granite, "K1 backward without the causal mask",
+                         control_k1_without_mask)
+    free()
+    phase_train_vs_plain(torch, "rwkv6-3b", rwkv, "K4 backward on time-reversed inputs",
+                         control_k4_time_reversed)
+
+    # launches: each kernel's count on the serving path it was ported for
+    # (granite-8b for K1-K3, rwkv6-3b for K4; their training paths with
+    # --skip-serving), and each path's count beside it
     for kname, e in entries.items():
-        by_path = {"granite-8b": dense_launches[kname], "rwkv6-3b": rwkv_launches[kname]}
-        e["launches_path"] = "rwkv6-3b" if kname == "wkv6" else "granite-8b"
-        e["launches"] = by_path[e["launches_path"]]
-        e["launches_by_path"] = by_path
+        path = "rwkv6-3b" if kname == "wkv6" else "granite-8b"
+        e["launches_path"] = path if path in paths else f"{path} train"
+        e["launches"] = paths[e["launches_path"]][kname]
+        e["launches_by_path"] = {p: launches[kname] for p, launches in paths.items()}
 
     log(smi)
     log(json.dumps({"kernels": [entries[k] for k in kcommon.KERNELS]}))

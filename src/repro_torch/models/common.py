@@ -1,5 +1,5 @@
 """Shared model substrate (port of ``repro.models.common``): parameter specs,
-init, norms, RoPE, attention.
+init, norms, RoPE, attention, the loss, remat.
 
 Conventions follow the JAX package: parameters are nested dicts of tensors
 whose leaves are first declared as ``ParamSpec``s; per-layer parameters
@@ -13,13 +13,15 @@ nothing here, and ``cache_update`` is an in-place write.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -72,6 +74,19 @@ def tree_leaves(tree) -> List:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_unflatten(like, leaves: List):
+    """The nested dict of ``like``'s structure holding ``leaves``, given in
+    ``tree_leaves`` order."""
+    it = iter(leaves)
+
+    def build(tree):
+        if isinstance(tree, dict):
+            return {k: build(tree[k]) for k in sorted(tree)}
+        return next(it)
+
+    return build(like)
 
 
 def init_param(spec: ParamSpec, gen: torch.Generator,
@@ -197,8 +212,50 @@ def cache_update(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token CE. logits (..., V); labels (...) int; fp32 logsumexp.
+
+    The label logit is a ``gather``, where the JAX version sums a one-hot:
+    the same function, without a (tokens, V) fp32 one-hot on the card.
+    """
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    label_logit = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - label_logit
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)
+
+
+# ---------------------------------------------------------------------------
 # Misc
 # ---------------------------------------------------------------------------
+
+def remat(cfg, layer: Callable) -> Callable:
+    """``layer`` run under ``torch.utils.checkpoint`` when ``cfg.remat`` is
+    set and grad is enabled (the counterpart of ``jax.checkpoint`` with
+    ``nothing_saveable``): its activations, the bf16 weight casts included,
+    are recomputed in the backward instead of kept."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return layer
+    return functools.partial(torch.utils.checkpoint.checkpoint, layer,
+                             use_reentrant=False)
+
+
+def layer_slices(params, n: int) -> List[Dict[str, torch.Tensor]]:
+    """The first ``n`` layers' parameters: views into the stacked "layers"
+    leaves, each leaf unbound once. (Indexing each leaf per layer would make
+    the backward write a zero-filled leaf-sized gradient per layer and leaf;
+    ``unbind``'s backward stacks the slices in one pass.)"""
+    names = sorted(params["layers"])
+    cols = [params["layers"][k].unbind(0)[:n] for k in names]
+    return [dict(zip(names, vals)) for vals in zip(*cols)]
+
 
 def swiglu(x_gate: torch.Tensor, x_up: torch.Tensor) -> torch.Tensor:
     return F.silu(x_gate) * x_up

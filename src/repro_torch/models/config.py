@@ -2,9 +2,10 @@
 
 The fields match the JAX ``ModelConfig`` one for one, so ``dataclasses.asdict``
 of a config is the same in both packages. Fields that only steer JAX/TPU
-execution (``remat``, ``scan_layers``, ``decode_cache_mode``) are kept for that
-parity and have no effect here: the port runs eagerly, loops over layers and
-updates the KV cache in place.
+execution (``scan_layers``, ``decode_cache_mode``) are kept for that parity
+and have no effect here: the port runs eagerly, loops over layers and
+updates the KV cache in place. ``remat`` does act: a training forward
+recomputes each layer in the backward.
 """
 from __future__ import annotations
 
@@ -57,7 +58,9 @@ class ModelConfig:
     # -- numerics / execution ---------------------------------------------------
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    remat: bool = True                # JAX only; kept for asdict parity
+    remat: bool = True                # with grad enabled, each layer runs
+    #                                   under torch.utils.checkpoint (JAX:
+    #                                   jax.checkpoint, nothing_saveable)
     scan_layers: bool = True          # JAX only; kept for asdict parity
     attention_impl: str = "auto"      # JAX only; kept for asdict parity (the
     #                                   port runs K1 on CUDA, dense on the CPU)

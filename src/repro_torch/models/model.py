@@ -3,6 +3,7 @@ architecture families — so far ``dense`` and ``rwkv``.
 
   param_specs(cfg)                         -> ParamSpec tree
   forward(cfg, params, batch)              -> (logits, aux)
+  loss_fn(cfg, params, batch)              -> (loss, {"ce_loss", "aux_loss"})
   decode_state_specs / init_decode_state   -> serving state (KV cache or
                                               recurrent state)
   prefill / decode_step                    -> serving
@@ -17,7 +18,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.models import rwkv6, transformer
-from repro_torch.models.common import resolve_device
+from repro_torch.models.common import resolve_device, softmax_cross_entropy
 from repro_torch.models.config import ModelConfig
 
 #: where each family that is not ported yet stands in ROADMAP.md, Queue 1
@@ -56,6 +57,15 @@ def param_specs(cfg: ModelConfig):
 def forward(cfg: ModelConfig, params, batch: Dict
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     return _family(cfg).forward(cfg, params, _tokens(batch))
+
+
+def loss_fn(cfg: ModelConfig, params, batch: Dict
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token CE of ``logits[:, :-1]`` against ``tokens[:, 1:]``, plus
+    the aux loss. Returns (total, {"ce_loss", "aux_loss"})."""
+    logits, aux = forward(cfg, params, batch)
+    loss = softmax_cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
+    return loss + aux, {"ce_loss": loss, "aux_loss": aux}
 
 
 def decode_state_specs(cfg: ModelConfig, batch: int, max_seq: int):

@@ -12,9 +12,10 @@ data-dependent token-shift interpolation; channel mixing is a token shift
 and a squared-ReLU FFN.
 
 Weights keep the JAX layouts and leaf paths with the leading "layers" axis;
-the layer scan becomes a Python loop over layer slices. The weight products
-stay ``torch.matmul``. Every RMSNorm goes through ``common.rms_norm`` (K2 on
-CUDA) and the recurrence over a sequence through ``wkv6`` (K4 on CUDA; its
+the layer scan becomes a Python loop over layer slices (under
+``torch.utils.checkpoint`` when a training forward has ``cfg.remat``). The
+weight products stay ``torch.matmul``. Every RMSNorm goes through
+``common.rms_norm`` (K2 on CUDA) and the recurrence over a sequence through ``wkv6`` (K4 on CUDA; its
 plain version is the JAX ``wkv6_chunked``). Decode steps one token with
 ``wkv6_step`` as plain tensor code, as the JAX decode does: it reaches no
 Pallas kernel.
@@ -35,9 +36,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.wkv6.ops import wkv6
-from repro_torch.models.common import ParamSpec, rms_norm
+from repro_torch.models.common import (ParamSpec, layer_slices, remat,
+                                       rms_norm)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import layer_slice
 
 
 def num_heads(cfg: ModelConfig) -> int:
@@ -210,10 +211,12 @@ def _unembed(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eval forward pass. Returns (logits, aux_loss = 0). tokens: (B, S)."""
+    """Training/eval forward pass. Returns (logits, aux_loss = 0). tokens:
+    (B, S)."""
     h = _embed(cfg, params, tokens)
-    for i in range(cfg.num_layers):
-        h = rwkv_layer(cfg, layer_slice(params, i), h)
+    layer = remat(cfg, rwkv_layer)
+    for lp in layer_slices(params, cfg.num_layers):
+        h = layer(cfg, lp, h)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _unembed(cfg, params, h), torch.zeros(
         (), dtype=torch.float32, device=h.device)
@@ -241,8 +244,7 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, state=None):
     if state is None:
         state = {k: torch.empty(shape, dtype=dt, device=h.device)
                  for k, (shape, dt) in state_specs(cfg, h.shape[0]).items()}
-    for i in range(cfg.num_layers):
-        lp = layer_slice(params, i)
+    for i, lp in enumerate(layer_slices(params, cfg.num_layers)):
         out, (tm_last, wkv_state) = time_mix(cfg, lp, h, return_state=True)
         h = h + out
         out, cm_last = channel_mix(cfg, lp, h, return_state=True)
@@ -265,8 +267,7 @@ def decode_step(cfg: ModelConfig, params, state, tokens: torch.Tensor,
     H, dh = num_heads(cfg), cfg.rwkv_head_dim
     h = _embed(cfg, params, tokens[:, None])  # (B, 1, D)
     B, _, D = h.shape
-    for i in range(cfg.num_layers):
-        lp = layer_slice(params, i)
+    for i, lp in enumerate(layer_slices(params, cfg.num_layers)):
         # time mix (S = 1, with the carried shift and WKV state)
         x = rms_norm(h, lp["tm_norm"], cfg.norm_eps)
         r, k, v, g, w = _time_mix_proj(cfg, lp, x, state["tm_shift"][i][:, None])

@@ -3,7 +3,8 @@
 
 Weights keep the JAX layouts and leaf paths — ``wq`` (L, D, H, dh), ``wo``
 (L, H, dh, D), ... — with the leading "layers" axis; the layer scan becomes a
-Python loop over layer slices. The weight products stay ``torch.matmul``;
+Python loop over layer slices (under ``torch.utils.checkpoint`` when a
+training forward has ``cfg.remat``). The weight products stay ``torch.matmul``;
 RMSNorm, prefill attention and decode attention go through the kernel
 wrappers (K2, K1, K3), which launch the Hopper kernels on CUDA tensors.
 
@@ -19,8 +20,8 @@ import torch
 
 from repro_torch.models.common import (ParamSpec, apply_rope, attention,
                                        cache_update, decode_attention,
-                                       rms_norm, rope_angles,
-                                       swiglu)
+                                       layer_slices, remat, rms_norm,
+                                       rope_angles, swiglu)
 from repro_torch.models.config import ModelConfig
 
 MOE_NOT_PORTED = ("the MoE family is not ported yet "
@@ -143,11 +144,6 @@ def decoder_layer(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
     return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
-def layer_slice(params, i: int) -> Dict[str, torch.Tensor]:
-    """Layer ``i``'s parameters: views into the stacked "layers" leaves."""
-    return {k: v[i] for k, v in params["layers"].items()}
-
-
 def _embed_and_rope(cfg, params, tokens):
     h = _embed_tokens(cfg, params, tokens)
     S = h.shape[1]
@@ -162,11 +158,13 @@ def _embed_and_rope(cfg, params, tokens):
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eval forward pass. Returns (logits, aux_loss). tokens: (B, S) int."""
+    """Training/eval forward pass. Returns (logits, aux_loss). tokens: (B, S)
+    int."""
     h, cos, sin = _embed_and_rope(cfg, params, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i in range(cfg.num_layers):
-        h, a = decoder_layer(cfg, layer_slice(params, i), h, cos, sin)
+    layer = remat(cfg, decoder_layer)
+    for lp in layer_slices(params, cfg.num_layers):
+        h, a = layer(cfg, lp, h, cos, sin)
         aux = aux + a
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _unembed(cfg, params, h), aux
@@ -193,8 +191,8 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache=None):
     if cache["k"].shape[2] < S:
         raise ValueError(f"cache holds {cache['k'].shape[2]} positions, "
                          f"prompt has {S}")
-    for i in range(cfg.num_layers):
-        h, k, v = _layer(cfg, layer_slice(params, i), h, cos, sin)
+    for i, lp in enumerate(layer_slices(params, cfg.num_layers)):
+        h, k, v = _layer(cfg, lp, h, cos, sin)
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
     # RMSNorm is per row, so only the last position is normed and unembedded
@@ -214,8 +212,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
     cos, sin = rope_angles(torch.full((1,), pos, device=h.device),
                            cfg.head_dim, cfg.rope_theta)
     cos, sin = cos[None], sin[None]  # (1, 1, dh/2)
-    for i in range(cfg.num_layers):
-        lp = layer_slice(params, i)
+    for i, lp in enumerate(layer_slices(params, cfg.num_layers)):
         x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(cfg, lp, x, cos, sin)
         kc, vc = cache["k"][i], cache["v"][i]

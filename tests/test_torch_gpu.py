@@ -18,6 +18,12 @@ decode-attention output over 1000 keys. WKV6's fp32 state is held to
 model on the card against the model on the CPU runs through different
 weight products, so it keeps the end-to-end bf16 atol = rtol = 4e-2 of
 tests/test_kernels.py.
+
+Gradients. Each autograd Function's forward output is held to its plain
+version at the kernel limits above. Its backward recomputes the plain version
+from the saved inputs and differentiates it, which is what autograd through
+the plain version does on the same inputs: the kernel's forward output never
+enters the gradients, so the two are held bit-identical (tolerance zero).
 """
 import pytest
 
@@ -37,7 +43,9 @@ from repro_torch.configs.rwkv6_3b import SMOKE_CONFIG as RWKV_SMOKE  # noqa: E40
 from repro_torch.models import (ModelConfig, decode_step,  # noqa: E402
                                 init_decode_state, init_params, param_specs,
                                 prefill)
+from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serve.engine import serving_params  # noqa: E402
+from repro_torch.train import loss_and_grads  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -293,3 +301,122 @@ def test_rwkv6_on_the_card_launches_the_kernels_and_matches_the_cpu(cuda):
                               "decode_attention": 0, "wkv6": L}
     for a, b in zip(out["cuda"], out["cpu"]):
         _assert_close(a.cpu(), b)
+
+
+# ---------------------------------------------------------------------------
+# Training: the autograd Functions' gradients and the train path's launches
+# ---------------------------------------------------------------------------
+
+def _function_vs_plain(fn, plain, inputs, gen, launches, tols):
+    """``fn`` (the kernel's Function) against ``plain`` on the same inputs,
+    both recording grads: each output within its (c, rtol) of ``tols``, as
+    the kernel tests hold it; then the grads of one random cotangent of the
+    first output, which must be bit-identical. Asserts the kernel launched
+    ``launches`` times."""
+    kin = [t.clone().requires_grad_(t.is_floating_point()) for t in inputs]
+    pin = [t.clone().requires_grad_(t.is_floating_point()) for t in inputs]
+    kcommon.reset_launches()
+    kout = fn(*kin)
+    kout = kout if isinstance(kout, tuple) else (kout,)
+    pout = plain(*pin)
+    pout = pout if isinstance(pout, tuple) else (pout,)
+    assert sum(kcommon.launches.values()) == launches
+    assert len(kout) == len(pout) == len(tols)
+    for got, want, (c, rtol) in zip(kout, pout, tols):
+        _assert_kernel_close(got.detach(), want.detach(), c=c, rtol=rtol)
+    g = torch.randn(kout[0].shape, generator=gen,
+                    device=kout[0].device).to(kout[0].dtype)
+    kout[0].backward(g)
+    pout[0].backward(g)
+    assert sum(kcommon.launches.values()) == launches
+    for a, b in zip(kin, pin):
+        if a.requires_grad:
+            assert a.grad.dtype == a.dtype and torch.equal(a.grad, b.grad)
+
+
+@pytest.mark.parametrize("shape", [(4096, 4096), (4096, 2560)])
+def test_rmsnorm_function_grads_equal_plain_autograd(cuda, shape):
+    """granite-8b's and rwkv6-3b's train-step rows (GB 4 x S 1024)."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = _randn(gen, shape, torch.bfloat16, cuda)
+    w = _randn(gen, (shape[-1],), torch.float32, cuda)
+    _function_vs_plain(rmsnorm, rmsnorm_ref, [x, w], gen, launches=1,
+                       tols=[(1e-2, KERNEL_RTOL)])
+
+
+@pytest.mark.parametrize("B,S,H,G,dh", [
+    (4, 1024, 32, 8, 128),   # granite-8b's train step, GQA rep 4
+    (2, 1024, 16, 4, 64),
+])
+def test_flash_attention_function_grads_equal_plain_autograd(cuda, B, S, H,
+                                                             G, dh):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = _randn(gen, (B, S, H, dh), torch.bfloat16, cuda)
+    k = _randn(gen, (B, S, G, dh), torch.bfloat16, cuda)
+    v = _randn(gen, (B, S, G, dh), torch.bfloat16, cuda)
+    _function_vs_plain(lambda *a: flash_attention(*a, True),
+                       lambda *a: flash_attention_ref(*a, True),
+                       [q, k, v], gen, launches=1,
+                       tols=[(2e-2, KERNEL_RTOL)])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wkv6_function_grads_equal_plain_autograd(cuda, dtype):
+    """rwkv6-3b's 40 heads of 64 over 1024 tokens."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    ins = _wkv_inputs(gen, 2, 1024, 40, 64, dtype, cuda)
+    _function_vs_plain(lambda *a: wkv6(*a, 64),
+                       lambda *a: wkv6_chunked(*a, 64), ins, gen, launches=1,
+                       tols=[(1e-2, KERNEL_RTOL),
+                             (WKV_STATE_TOL, WKV_STATE_TOL)])
+
+
+def test_training_refuses_what_the_kernels_refuse(cuda):
+    """A CUDA tensor the kernel does not take raises in training as in
+    serving: no plain fallback."""
+    x = torch.zeros(2, 8, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError):        # fp32 x
+        rmsnorm(x, torch.ones(8, device=cuda, requires_grad=True))
+    q = torch.zeros(1, 4, 2, 16, dtype=torch.bfloat16, device=cuda,
+                    requires_grad=True)
+    with pytest.raises(ValueError):        # head_dim 16
+        flash_attention(q, q, q)
+    r = torch.zeros(1, 4, 2, 8, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError):        # head_dim 8
+        wkv6(r, r, r, r, torch.zeros(2, 8, device=cuda), 64)
+
+
+@pytest.mark.parametrize("family", ["dense", "rwkv"])
+@pytest.mark.parametrize("remat", [True, False])
+def test_train_path_launches_the_kernels_and_matches_the_cpu(cuda, family,
+                                                             remat):
+    """Loss and grads of a 2-layer model on the card: each forward kernel
+    launches once per use, twice with remat (forward and recompute); the
+    loss against the CPU at the bf16 atol = rtol = 4e-2."""
+    if family == "dense":
+        cfg = ModelConfig(name="gpu-smoke", family="dense", num_layers=2,
+                          d_model=256, num_heads=4, num_kv_heads=2, d_ff=512,
+                          vocab_size=512)  # head_dim 64
+        per_layer = {"rmsnorm": 2, "flash_attention": 1}
+    else:
+        cfg = RWKV_SMOKE
+        per_layer = {"rmsnorm": 3, "wkv6": 1}
+    cfg = cfg.replace(remat=remat)
+    params = init_params(param_specs(cfg), seed=0, device="cpu")
+    tokens = torch.arange(2 * 24).reshape(2, 24) * 7 % cfg.vocab_size
+    out = {}
+    for dev in ("cpu", "cuda"):
+        kcommon.reset_launches()
+        loss, _, grads = loss_and_grads(
+            cfg, tree_map(lambda t: t.to(dev), params),
+            {"tokens": tokens.to(dev)})
+        assert all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+        out[dev] = (loss, dict(kcommon.launches))
+    times = 2 if remat else 1
+    want = {name: 0 for name in kcommon.KERNELS}
+    for name, n in per_layer.items():
+        want[name] = times * n * cfg.num_layers
+    want["rmsnorm"] += 1  # the final norm, outside the layers
+    assert out["cpu"][1] == {name: 0 for name in kcommon.KERNELS}
+    assert out["cuda"][1] == want
+    _assert_close(out["cuda"][0].cpu(), out["cpu"][0])
