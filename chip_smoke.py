@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            (from the repository root, one CUDA card)
     python3 chip_smoke.py --kernels rmsnorm,wkv6   (phases 1-3 for those only)
-    python3 chip_smoke.py --skip-serving           (phases 1-3 and 6-8)
+    python3 chip_smoke.py --skip-serving           (phases 1-3 and 6-9)
 
 Phases, each of which raises (exit code != 0) on failure:
 
@@ -58,13 +58,30 @@ Phases, each of which raises (exit code != 0) on failure:
    within GRAD_NORM_RTOL; one negative control per model changes only one
    kernel's backward rule (K1's recompute without the causal mask; K4's on
    time-reversed inputs), and the check must refuse it.
+9. The granite-8b cut of phase 6 trained off the tgb data plane: a writer
+   commits 14 global batches of 4 x 1024 tokens (vocab 49152) as TGBs into
+   a ``MemoryObjectStore`` with the S3-class ``LatencyModel()``; one reader
+   per (d, c) of dp 2 x cp 2 range-reads its 4 KiB slice, and
+   ``FusedTrainLoop`` fans them in and stages each grid on the card
+   (pinned slots, side-stream copy). Depth 0 and depth 2 (readers
+   prefetching 4), 2 warm-up and 6 timed steps each from cursor 0, then a
+   replay of steps 2-4 from a cursor snapshot; depth 2 runs 2 more steps
+   under torch.profiler for its device-busy share. Every grid must equal the
+   host packer's (``GlobalBatchPacker`` + ``assemble_grid`` on the stream,
+   no store), every step's device tokens its host tokens, every step's
+   launches phase 6's, every loss be finite, the readers' cursors equal the
+   consumed count after ``stop()``, and the replay be byte-identical; a
+   source that swaps each grid's two DP halves must be refused. Printed:
+   tokens/s and the data_wait / h2d / compute / other split of each arm,
+   per-step ms, compute ms beside phase 6's step ms, the attribution
+   against a roofline of 6 N tokens / 989 TFLOP/s, and peak memory.
 
 The last lines are the ``nvidia-smi`` name/power-limit line as it prints
 it, one JSON object with every kernel's numbers, and ``{"ok": true,
 "device": {...}}``. A kernel's ``launches`` is its count on the serving path
 it was ported for (granite-8b for RMSNorm and both attention kernels,
 rwkv6-3b for WKV6); ``launches_by_path`` gives each path's count, the
-training paths' over their 3 steps.
+training paths' over their 3 steps, the fused path's over its 21.
 """
 from __future__ import annotations
 
@@ -128,6 +145,12 @@ TRAIN_OPT = dict(learning_rate=1e-4, warmup_steps=1, total_steps=10)
 TRAIN_LOSS_RTOL = 1e-3
 GRAD_RMS_TOL = 5e-2
 GRAD_NORM_RTOL = 1e-2
+# phase 9: the fused loop over the tgb data plane, the granite-8b cut of
+# phase 6 with 4 x 1024 tokens a step spread over dp 2 x cp 2 readers
+FUSED_DP, FUSED_CP = 2, 2
+FUSED_BATCHES = 14            # the stream of tests/test_fused_train.py:50-52
+FUSED_WARMUP, FUSED_TIMED = 2, 6
+FUSED_PROFILED = 2            # depth 2's steps under torch.profiler
 # the forward kernels' names as the profiler lists them
 KERNEL_SYMBOLS = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "fa_fwd_kernel",
                   "decode_attention": "decode_kernel", "wkv6": "wkv6_kernel"}
@@ -765,7 +788,8 @@ def timed_rules(torch):
 
 def phase_train(torch, kcommon, label, cfg):
     """Full-width training: TRAIN_STEPS AdamW steps on one batch, then one
-    profiled step. Returns the launches of the TRAIN_STEPS steps."""
+    profiled step. Returns the launches of the TRAIN_STEPS steps and each
+    step's wall ms."""
     import numpy as np
 
     from repro_torch.models import init_params, param_specs
@@ -802,7 +826,7 @@ def phase_train(torch, kcommon, label, cfg):
         per_step = {k: now[k] - before[k] for k in now}
         before = now
         m = {k: float(v) for k, v in metrics.items()}
-        readings.append((m, per_step))
+        readings.append((m, per_step, wall * 1e3))
         log(f"{label} train step {i + 1}: loss {m['loss']:.6f}  grad_norm {m['grad_norm']:.6f}"
             f"  lr {m['lr']:.3e}  {wall * 1e3:.2f} ms  {tokens / wall:.1f} tokens/s  "
             f"launches {per_step}")
@@ -833,12 +857,204 @@ def phase_train(torch, kcommon, label, cfg):
         f"and AdamW; the profiler's kernel lines for the forward kernels): step {step_ms:.2f} ms; "
         + "; ".join(f"{k} {v:.2f} ms = {v / step_ms:.1%}" for k, v in parts.items()))
 
-    bad = [i + 1 for i, (m, per_step) in enumerate(readings)
+    bad = [i + 1 for i, (m, per_step, _) in enumerate(readings)
            if per_step != want or not all(np.isfinite([m["loss"], m["grad_norm"]]))]
     if bad or moved != len(samples):
         raise AssertionError(f"{label} train: steps {bad} have non-finite loss or grad norm "
                              f"or launches other than {want}; {moved} of {len(samples)} "
                              f"leaves moved")
+    return launches, [ms for _, _, ms in readings]
+
+
+class GridSource:
+    """Phase 9's wrapper of the loop's ``ReaderFanInSource``: records the
+    cursors before each fetch (the replay snapshots) and, as the negative
+    control, can hand the loop each grid with its two DP halves swapped."""
+
+    def __init__(self, inner, swap_dp_halves=False):
+        self.inner, self.topology = inner, inner.topology
+        self.swap = swap_dp_halves
+        self.snapshots = []
+
+    def next_tokens(self, timeout_s=None):
+        import numpy as np
+
+        snap = self.inner.cursors()
+        grid = self.inner.next_tokens(timeout_s=timeout_s)
+        self.snapshots.append(snap)
+        if self.swap:
+            half = grid.shape[0] // 2
+            grid = np.concatenate([grid[half:], grid[:half]])
+        return grid
+
+    def cursors(self):
+        return self.inner.cursors()
+
+    def restore(self, cursors):
+        self.inner.restore(cursors)
+
+    def start_prefetch(self):
+        self.inner.start_prefetch()
+
+    def stop_prefetch(self):
+        self.inner.stop_prefetch()
+
+
+def phase_fused(torch, kcommon, cfg, phase6_ms):
+    """granite-8b (8 of 36 layers), trained off the tgb data plane through
+    ``FusedTrainLoop``: TGBs committed into a ``MemoryObjectStore`` with
+    S3-class latency, range-read by one reader per (d, c), staged on the
+    card by the loop. Three runs (depth 0, depth 2, a replay from a cursor
+    snapshot) and a negative control; returns the launches of all of them."""
+    import numpy as np
+
+    from repro_torch.core import LatencyModel, MemoryObjectStore
+    from repro_torch.data.packing import GlobalBatchPacker, assemble_grid
+    from repro_torch.dataplane import Topology, open_dataplane
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.train import (OptimizerConfig, StepConfig, init_opt_state,
+                                   make_train_step)
+    from repro_torch.train.pipeline import FusedTrainLoop, ReaderFanInSource
+
+    topo = Topology(dp=FUSED_DP, cp=FUSED_CP, global_batch=TRAIN_GB, seq_len=TRAIN_SEQ)
+    n = FUSED_BATCHES * TRAIN_GB * TRAIN_SEQ
+    stream = ((np.arange(n) * 7 + 3) % cfg.vocab_size).astype(np.int32)
+    packer = GlobalBatchPacker(TRAIN_GB, TRAIN_SEQ, topo.dp, topo.cp)
+    host_grids = [assemble_grid(b.slices, TRAIN_GB, TRAIN_SEQ, topo.dp, topo.cp)
+                  for b in packer.add_tokens(stream)]
+    session = open_dataplane(MemoryObjectStore(latency=LatencyModel()), topo,
+                             namespace="runs/fused")
+    t0 = time.monotonic()
+    with session.writer("w0") as w:
+        offsets = w.write_tokens(stream)
+    log(f"fused: {len(offsets)} TGBs of {TRAIN_GB} x {TRAIN_SEQ} tokens "
+        f"({TRAIN_GB * TRAIN_SEQ * 4 // 1024} KiB, a rank's slice "
+        f"{TRAIN_GB * TRAIN_SEQ * 4 // topo.world // 1024} KiB; dp {topo.dp}, cp {topo.cp}) "
+        f"committed in {time.monotonic() - t0:.2f} s to a MemoryObjectStore with "
+        f"LatencyModel() (S3-class)")
+    readers = [session.reader(dp_rank=d, cp_rank=c, prefetch_depth=4)
+               for d in range(topo.dp) for c in range(topo.cp)]
+    fan_in = ReaderFanInSource(readers, topo)
+    start = fan_in.cursors()
+
+    params = init_params(param_specs(cfg), seed=SEED, device="cuda")
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, OptimizerConfig(**TRAIN_OPT), StepConfig(microbatches=1))
+    want = expected_train_launches(cfg)
+    per_step, device_tokens = [], []
+
+    def checked_step(p, o, batch):
+        # the device tokens as the step sees them (copied on its stream)
+        # and the launches of this step alone
+        device_tokens.append(batch["tokens"].clone())
+        before = dict(kcommon.launches)
+        out = step(p, o, batch)
+        per_step.append({k: kcommon.launches[k] - before[k] for k in before})
+        return out
+
+    def drive(depth, steps, restore_to, swap=False, profile_last=False):
+        """One loop run from the cursors ``restore_to``, ``steps`` a tuple of
+        ``run`` lengths (the last under torch.profiler if ``profile_last``);
+        returns (grids, mismatches, reports, loop, source)."""
+        nonlocal params, opt
+        fan_in.restore(restore_to)
+        src = GridSource(fan_in, swap_dp_halves=swap)
+        grids, mismatches, reports = [], [], []
+        device_tokens.clear()
+        per_step.clear()
+
+        def on_batch(i, host):
+            grids.append(host.copy())
+            # the grid the host packer makes from the stream, without the store
+            want_grid = host_grids[restore_to[0].step + i]
+            if host.dtype != np.int32 or not np.array_equal(host, want_grid):
+                mismatches.append(f"grid {i}: not the host packer's")
+
+        loop = FusedTrainLoop(src, checked_step, params, opt, topology=topo,
+                              depth=depth, timeout_s=60.0)
+        with loop:
+            for k, n_steps in enumerate(steps):
+                if profile_last and k == len(steps) - 1:
+                    device_profile(torch, f"fused depth {depth}, {n_steps} steps",
+                                   lambda: reports.append(loop.run(n_steps, on_batch=on_batch)))
+                else:
+                    reports.append(loop.run(n_steps, on_batch=on_batch))
+        params, opt = loop.params, loop.opt_state
+        for i, (dev, host) in enumerate(zip(device_tokens, grids)):
+            back = dev.cpu().numpy()
+            if dev.dtype != torch.int32 or not np.array_equal(back, host):
+                mismatches.append(f"step {i}: device tokens are not the host tokens")
+        for i, launches in enumerate(per_step):
+            if launches != want:
+                mismatches.append(f"step {i}: launches {launches}, want {want}")
+        for r in reports:
+            for t in r.timings:
+                if not np.isfinite(t.loss):
+                    mismatches.append(f"step {t.step}: loss {t.loss}")
+        return grids, mismatches, reports, loop, src
+
+    roofline_s = 6 * cfg.param_count() * TRAIN_GB * TRAIN_SEQ / BF16_TENSOR_FLOPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kcommon.reset_launches()
+    arms = {}
+    for depth in (0, 2):
+        # depth 2 then runs FUSED_PROFILED more steps under the profiler
+        grids, bad, reports, loop, src = drive(
+            depth, (FUSED_WARMUP, FUSED_TIMED) + ((FUSED_PROFILED,) if depth else ()),
+            start, profile_last=depth > 0)
+        if bad:
+            raise AssertionError(f"fused depth {depth}: {bad}")
+        rep = reports[1]
+        arms[depth] = (grids, rep, loop, src)
+        per = rep.attribution(roofline_step_s=roofline_s)
+        fr = rep.stall_fractions()
+        log(f"fused depth {depth}: {rep.steps} timed steps after {FUSED_WARMUP} warm-up, "
+            f"{rep.tokens_per_s:.1f} tokens/s; split data_wait {fr['data_wait']:.4f} "
+            f"h2d {fr['h2d']:.4f} compute {fr['compute']:.4f} other {fr['other']:.4f}; "
+            f"per step ms {[round(t.wall_s * 1e3, 2) for t in rep.timings]}; compute ms "
+            f"{[round(t.compute_s * 1e3, 2) for t in rep.timings]} (phase 6's step ms "
+            f"{[round(ms, 2) for ms in phase6_ms]}); data_wait ms "
+            f"{[round(t.data_wait_s * 1e3, 2) for t in rep.timings]}; h2d ms "
+            f"{[round(t.h2d_s * 1e3, 3) for t in rep.timings]}; losses "
+            f"{[round(x, 5) for x in rep.losses]}")
+        log(f"fused depth {depth} attribution (roofline {roofline_s * 1e3:.2f} ms = "
+            f"6 x {cfg.param_count() / 1e9:.3f} B params x {TRAIN_GB * TRAIN_SEQ} tokens / "
+            f"{BF16_TENSOR_FLOPS:.3g} FLOP/s): "
+            + json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
+                          for k, v in per.items() if k != "per_step"})
+            + " per_step " + json.dumps({k: round(v * 1e3, 3)
+                                         for k, v in per["per_step"].items()}) + " ms")
+    # the ring ran ahead; stop() rewound every reader to the consumed frontier
+    grids2, _, loop2, src2 = arms[2]
+    steps_at = [ck.step for ck in fan_in.cursors()]
+    if steps_at != [loop2.consumed] * len(readers):
+        raise AssertionError(f"fused: reader cursors {steps_at} after stop(), "
+                             f"want {loop2.consumed} each")
+    if [g.tobytes() for g in arms[0][0]] != [g.tobytes() for g in grids2[:len(arms[0][0])]]:
+        raise AssertionError("fused: the depth-0 and depth-2 arms consumed different grids")
+    # replay from the snapshot taken before step 2's fetch
+    replay, bad, _, _, _ = drive(2, (3,), src2.snapshots[2])
+    if bad or [g.tobytes() for g in replay] != [g.tobytes() for g in grids2[2:5]]:
+        raise AssertionError(f"fused replay from step 2: {bad}; byte-identical to steps "
+                             f"2-4: {[g.tobytes() for g in replay] == [g.tobytes() for g in grids2[2:5]]}")
+    launches = dict(kcommon.launches)
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = 2 * (FUSED_WARMUP + FUSED_TIMED) + FUSED_PROFILED + 3
+    expect_all = {k: v * n_steps for k, v in want.items()}
+    if launches != expect_all:
+        raise AssertionError(f"fused: launches {launches} over {n_steps} steps, "
+                             f"want {expect_all}")
+    log(f"fused: replay of steps 2-4 from a cursor snapshot byte-identical; reader cursors "
+        f"at the consumed frontier {steps_at}; launches over {n_steps} steps {launches} "
+        f"({want} a step); max_memory_allocated {peak / 2**30:.2f} GiB")
+
+    # negative control: the same checks refuse DP halves swapped
+    _, bad, _, _, _ = drive(2, (1,), start, swap=True)
+    if not bad:
+        raise AssertionError("fused control (DP halves swapped): the grid check passed it")
+    log(f"  control fused (DP halves swapped): refused ({bad[0]})")
+    session.close()
     return launches
 
 
@@ -926,7 +1142,7 @@ def main() -> int:
                     help="comma-separated kernel names: build and check only "
                          "these (phases 1-3) and skip the serving phases")
     ap.add_argument("--skip-serving", action="store_true",
-                    help="run phases 1-3 and the training phases 6-8 only")
+                    help="run phases 1-3 and the training phases 6-9 only")
     args = ap.parse_args()
     import torch
 
@@ -998,12 +1214,12 @@ def main() -> int:
 
     # -- 6. granite-8b training, full width, 8 of 36 layers --------------------------------
     granite, rwkv = get_config("granite_8b"), get_config("rwkv6_3b")
-    paths["granite-8b train"] = phase_train(
+    paths["granite-8b train"], granite_ms = phase_train(
         torch, kcommon, "granite-8b", granite.replace(num_layers=GRANITE_TRAIN_LAYERS))
     free()
 
     # -- 7. rwkv6-3b training, full width and depth ----------------------------------------
-    paths["rwkv6-3b train"] = phase_train(
+    paths["rwkv6-3b train"], _ = phase_train(
         torch, kcommon, "rwkv6-3b", rwkv.replace(num_layers=RWKV_TRAIN_LAYERS))
     free()
 
@@ -1013,6 +1229,11 @@ def main() -> int:
     free()
     phase_train_vs_plain(torch, "rwkv6-3b", rwkv, "K4 backward on time-reversed inputs",
                          control_k4_time_reversed)
+    free()
+
+    # -- 9. the granite-8b cut of phase 6, trained off the tgb data plane ------------------
+    paths["granite-8b fused"] = phase_fused(
+        torch, kcommon, granite.replace(num_layers=GRANITE_TRAIN_LAYERS), granite_ms)
 
     # launches: each kernel's count on the serving path it was ported for
     # (granite-8b for K1-K3, rwkv6-3b for K4; their training paths with

@@ -25,6 +25,7 @@ from the saved inputs and differentiates it, which is what autograd through
 the plain version does on the same inputs: the kernel's forward output never
 enters the gradients, so the two are held bit-identical (tolerance zero).
 """
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -420,3 +421,73 @@ def test_train_path_launches_the_kernels_and_matches_the_cpu(cuda, family,
     assert out["cpu"][1] == {name: 0 for name in kcommon.KERNELS}
     assert out["cuda"][1] == want
     _assert_close(out["cuda"][0].cpu(), out["cpu"][0])
+
+
+# ---------------------------------------------------------------------------
+# The fused loop's staging on the card
+# ---------------------------------------------------------------------------
+
+class _InstantSource:
+    """A token-grid source whose fetch is instant and whose every grid
+    differs (no cursor: the loop keeps what it staged)."""
+
+    topology = None
+
+    def __init__(self, shape=(16, 2048)):
+        self.shape = shape
+        self.n = 0
+        self.grids = []
+
+    def next_tokens(self, timeout_s=None):
+        g = ((np.arange(self.shape[0] * self.shape[1], dtype=np.int64)
+              * (self.n + 3) + self.n) % 49152).astype(np.int32)
+        self.n += 1
+        return g.reshape(self.shape)
+
+    def cursors(self):
+        return None
+
+    def restore(self, cursors):
+        raise AssertionError("not restorable")
+
+    def start_prefetch(self):
+        pass
+
+    def stop_prefetch(self):
+        pass
+
+
+def _checksum_step(params, opt_state, batch):
+    """Sleeps on the trainer's stream, then reduces the device tokens: a
+    copy still in flight, or a block handed back to the side stream too
+    early, shows as a wrong checksum."""
+    tokens = batch["tokens"]
+    assert tokens.dtype == torch.int32 and tokens.is_cuda
+    torch.cuda._sleep(2_000_000)
+    w = torch.arange(1, tokens.shape[1] + 1, device=tokens.device)
+    return params, opt_state, {"loss": (tokens.long() * w).sum() % 1000003}
+
+
+@pytest.mark.parametrize("depth", [0, 2, 4])
+def test_fused_loop_device_tokens_equal_host_grids(cuda, depth):
+    """40 steps through the staging ring (depth 0: the synchronous path):
+    every step's checksum of its device tokens equals its host grid's."""
+    from repro_torch.train.pipeline import FusedTrainLoop
+    params = {"w": torch.zeros(4, device=cuda)}
+    host = []
+    with FusedTrainLoop(_InstantSource(), _checksum_step, params, {},
+                        depth=depth, timeout_s=30.0) as loop:
+        rep = loop.run(40, on_batch=lambda s, t: host.append(t.copy()))
+    w = np.arange(1, host[0].shape[1] + 1, dtype=np.int64)
+    want = [float((g.astype(np.int64) * w).sum() % 1000003) for g in host]
+    assert rep.losses == want
+    assert len(set(want)) == 40
+    if depth:
+        assert all(t.h2d_s == 0.0 for t in rep.timings)
+
+
+def test_fused_loop_refuses_params_off_its_device(cuda):
+    from repro_torch.train.pipeline import FusedTrainLoop
+    with pytest.raises(ValueError, match="parameter lies on cpu"):
+        FusedTrainLoop(_InstantSource(), _checksum_step,
+                       {"w": torch.zeros(4)}, {}, depth=2)

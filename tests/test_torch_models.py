@@ -215,16 +215,26 @@ def test_frontend_embeds_are_refused_until_a_frontend_is_ported(entry):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every port module, ``chip_smoke.py`` and the port's example import
+    with ``jax``, ``repro`` and ``msgpack`` made unimportable (the card's
+    machine has none of them), and none is loaded afterwards."""
     modules = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
         .removesuffix(".__init__")
         for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
     code = (
-        "import importlib, json, sys\n"
+        "import importlib, importlib.abc, json, sys\n"
+        "BLOCKED = ('jax', 'repro', 'msgpack')\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.')]\n"
+        "sys.path.insert(0, 'examples')\n"
+        "import train_fused_torch\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
         "print(json.dumps(bad))\n")
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
