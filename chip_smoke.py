@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            (from the repository root, one CUDA card)
     python3 chip_smoke.py --kernels rmsnorm,wkv6   (phases 1-3 for those only)
-    python3 chip_smoke.py --skip-serving           (phases 1-3 and 6-9)
+    python3 chip_smoke.py --skip-serving           (phases 1-3 and 6-10)
 
 Phases, each of which raises (exit code != 0) on failure:
 
@@ -76,12 +76,34 @@ Phases, each of which raises (exit code != 0) on failure:
    per-step ms, compute ms beside phase 6's step ms, the attribution
    against a roofline of 6 N tokens / 989 TFLOP/s, and peak memory.
 
+10. The cut of phase 9, with its settings (dp 2 x cp 2, 4 x 1024 tokens,
+   depth 2, readers prefetching 4), trained through a ``TrainSession`` on
+   a ``MemoryObjectStore`` with a ``FaultInjector`` and no latency model, so
+   the times are the port's own (device to host, serialisation, host to
+   device): 4 steps, ``FusedTrainLoop.aligned_checkpoint`` (it must bind
+   step 4, the consumed frontier, not the staged ring), a checksum pair of
+   each leaf's bits on the card, ``reclaim``, 3 more steps (run A's steps
+   5-7), then a second aligned checkpoint killed between its upload and
+   its RunManifest commit (``InjectedCrash``). The loop, the session and
+   the state are freed; ``TrainSession.resume`` must give ``resume_step``
+   4, ``restore_model`` into a fresh template on the card must give every
+   leaf's checksums, and a new loop's 3 steps must consume run A's grids
+   byte for byte with losses within RESUME_LOSS_RTOL. The negative control
+   restores the killed upload (no entry binds it) with the aligned cursor
+   and trains one step: the loss check must refuse it. ``fsck`` must report
+   no error and the killed upload as pending. Printed, each beside the
+   card's name and power limit: the state's bytes, the host's MemAvailable,
+   upload seconds and GB/s, commit ms, resume + restore seconds and GB/s,
+   the wall from resume to the end of the first resumed step, peak device
+   memory, launches (33 / 16 / 0 a step) and the phase's seconds.
+
 The last lines are the ``nvidia-smi`` name/power-limit line as it prints
 it, one JSON object with every kernel's numbers, and ``{"ok": true,
 "device": {...}}``. A kernel's ``launches`` is its count on the serving path
 it was ported for (granite-8b for RMSNorm and both attention kernels,
 rwkv6-3b for WKV6); ``launches_by_path`` gives each path's count, the
-training paths' over their 3 steps, the fused path's over its 21.
+training paths' over their 3 steps, the fused path's over its 21, the
+resume path's over its 11.
 """
 from __future__ import annotations
 
@@ -151,6 +173,13 @@ FUSED_DP, FUSED_CP = 2, 2
 FUSED_BATCHES = 14            # the stream of tests/test_fused_train.py:50-52
 FUSED_WARMUP, FUSED_TIMED = 2, 6
 FUSED_PROFILED = 2            # depth 2's steps under torch.profiler
+# phase 10: phase 9's settings through a TrainSession, an aligned checkpoint,
+# a kill between a later upload and its commit, and the resume
+RESUME_NS = "runs/resume"
+# the resumed steps' losses against the uninterrupted run's: the rtol of the
+# reference's kill-and-resume test (tests/test_fused_train.py:115-116); the
+# same state, batches and kernels should give bit-equal losses
+RESUME_LOSS_RTOL = 1e-6
 # the forward kernels' names as the profiler lists them
 KERNEL_SYMBOLS = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "fa_fwd_kernel",
                   "decode_attention": "decode_kernel", "wkv6": "wkv6_kernel"}
@@ -1058,6 +1087,249 @@ def phase_fused(torch, kcommon, cfg, phase6_ms):
     return launches
 
 
+def leaf_fingerprints(torch, tree):
+    """Two int64 checksums of each leaf's bits, computed on the card: their
+    sum and their sum weighted by (position mod 65521) + 1, so a moved or
+    changed element changes the pair. Returns [(path, sum, weighted)]."""
+    from repro_torch.models.common import tree_leaves
+
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    piece = 1 << 26
+    sums = []
+    for leaf in tree_leaves(tree):
+        bits = leaf.detach().reshape(-1).view(ints[leaf.element_size()])
+        s = torch.zeros(2, dtype=torch.int64, device=leaf.device)
+        for off in range(0, bits.numel(), piece):
+            x = bits[off:off + piece].to(torch.int64)
+            w = torch.arange(off, off + x.numel(), device=leaf.device) % 65521 + 1
+            s[0] += x.sum()
+            s[1] += (x * w).sum()
+        sums.append(s)
+    values = torch.stack(sums).tolist()
+    return [(p, a, b) for p, (a, b) in zip(leaf_paths(tree), values)]
+
+
+def mem_available_gib() -> float:
+    """The host's MemAvailable, from /proc/meminfo."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024 / 2**30
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def phase_resume(torch, kcommon, cfg, smi):
+    """The granite-8b cut of phases 6 and 9, trained off a ``TrainSession``:
+    an aligned checkpoint through ``FusedTrainLoop.aligned_checkpoint``, a
+    kill between a later upload and its commit, and ``TrainSession.resume``
+    + ``restore_model`` at full width. Returns the phase's launches."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.core import FaultInjector, InjectedCrash, MemoryObjectStore
+    from repro_torch.core.lifecycle import read_trim_marker
+    from repro_torch.dataplane import Topology
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.obs.tracer import disable_tracing, enable_tracing
+    from repro_torch.ops import fsck
+    from repro_torch.run import TrainSession
+    from repro_torch.train import (OptimizerConfig, StepConfig, init_opt_state,
+                                   make_train_step)
+    from repro_torch.train.checkpoint import load_model_state
+    from repro_torch.train.pipeline import FusedTrainLoop, ReaderFanInSource
+
+    def say(msg):
+        log(f"resume: {msg}  [{smi}]")
+
+    t_phase = time.monotonic()
+    say(f"host MemAvailable {mem_available_gib():.2f} GiB at the start")
+    topo = Topology(dp=FUSED_DP, cp=FUSED_CP, global_batch=TRAIN_GB, seq_len=TRAIN_SEQ)
+    n = FUSED_BATCHES * TRAIN_GB * TRAIN_SEQ
+    stream = ((np.arange(n) * 7 + 3) % cfg.vocab_size).astype(np.int32)
+    store = MemoryObjectStore(faults=FaultInjector())   # no latency model
+    session = TrainSession(store, topo, namespace=RESUME_NS)
+    with session.writer("w0") as w:
+        w.write_tokens(stream)
+
+    def fan_in(sess):
+        return ReaderFanInSource([sess.reader(dp_rank=d, cp_rank=c, prefetch_depth=4)
+                                  for d in range(topo.dp) for c in range(topo.cp)], topo)
+
+    step = make_train_step(cfg, OptimizerConfig(**TRAIN_OPT), StepConfig(microbatches=1))
+    want = expected_train_launches(cfg)
+    per_step = []
+
+    def counted_step(p, o, batch):
+        before = dict(kcommon.launches)
+        out = step(p, o, batch)
+        per_step.append({k: kcommon.launches[k] - before[k] for k in before})
+        return out
+
+    def new_loop(sess, params, opt):
+        return FusedTrainLoop(fan_in(sess), counted_step, params, opt, topology=topo,
+                              depth=2, timeout_s=60.0)
+
+    def timed_checkpoint(loop, sess):
+        tracer = enable_tracing()
+        try:
+            t0 = time.perf_counter()
+            try:
+                return loop.aligned_checkpoint(
+                    sess, {"params": loop.params, "opt": loop.opt_state}), None
+            except InjectedCrash as e:
+                # its message only: the traceback's frames hold the state
+                return None, str(e)
+        finally:
+            wall = time.perf_counter() - t0
+            disable_tracing()
+            spans = {s.name: s.dur for s in tracer.spans() if s.name.startswith("checkpoint.")}
+            timings.append((wall, spans))
+
+    params = init_params(param_specs(cfg), seed=SEED, device="cuda")
+    opt = init_opt_state(params)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves({"params": params, "opt": opt}))
+    say(f"state {state_bytes / 1e9:.3f} GB (fp32 params, m and v of {cfg.param_count() / 1e9:.3f} "
+        f"B params, 12 B a param, and the step); {FUSED_BATCHES} TGBs of {TRAIN_GB} x "
+        f"{TRAIN_SEQ} tokens in a MemoryObjectStore with no latency model")
+    timings, peaks = [], {}
+
+    def stage_peak(name):
+        """Peak device memory of the stage that ends here (GiB)."""
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kcommon.reset_launches()
+
+    # -- run A: 4 steps, the aligned checkpoint, 3 more steps, the kill -------------------
+    loop = new_loop(session, params, opt)
+    loop.start()
+    losses_a = list(loop.run(4).losses)
+    entry, _ = timed_checkpoint(loop, session)
+    if entry.step != 4:
+        raise AssertionError(f"resume: the aligned checkpoint bound step {entry.step}, want 4")
+    bound = leaf_fingerprints(torch, {"params": loop.params, "opt": loop.opt_state})
+    session.reclaim()
+    trim = read_trim_marker(session.ns)
+    grids_a = []
+    losses_a += loop.run(3, on_batch=lambda i, t: grids_a.append(t.tobytes())).losses
+    store.faults.crash_on("cput", key_substr=".rm", nth=1)
+    killed, crash = timed_checkpoint(loop, session)
+    if crash is None:
+        raise AssertionError("resume: the second aligned checkpoint committed; want the "
+                             "injected crash between its upload and its commit")
+    store.faults = None
+    (up_s, up_spans), (kill_s, kill_spans) = timings
+    say(f"aligned checkpoint at step {entry.step} (seq {entry.seq}, {entry.model_key}); "
+        f"upload {up_spans['checkpoint.upload']:.3f} s = "
+        f"{state_bytes / up_spans['checkpoint.upload'] / 1e9:.3f} GB/s; commit "
+        f"{up_spans['checkpoint.commit'] * 1e3:.3f} ms; aligned_checkpoint {up_s:.3f} s; "
+        f"reclaim -> trim marker {trim}")
+    say(f"killed checkpoint at step 7: {crash}; its upload {kill_spans['checkpoint.upload']:.3f} s "
+        f"= {state_bytes / kill_spans['checkpoint.upload'] / 1e9:.3f} GB/s landed, no commit; "
+        f"store holds {store.total_bytes() / 1e9:.3f} GB; host MemAvailable "
+        f"{mem_available_gib():.2f} GiB")
+    say(f"S3-class arithmetic (LatencyModel's put 300 MB/s, get 500 MB/s; not measured): "
+        f"{state_bytes / 300e6:.1f} s up, {state_bytes / 500e6:.1f} s down")
+    orphan_key = session.ns.key("checkpoints", f"{7:010d}", "MANIFEST.ckpt")
+    if not store.exists(orphan_key):
+        raise AssertionError(f"resume: the killed upload is not at {orphan_key}")
+
+    # -- the crash: stop, close, free the trainer's state --------------------------------
+    loop.stop()
+    session.close()
+    del loop, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    stage_peak("run A")
+
+    # -- run B: resume from the RunManifest, restore, replay 3 steps ---------------------
+    params = init_params(param_specs(cfg), seed=SEED + 1, device="cuda")
+    template = {"params": params, "opt": init_opt_state(params)}
+    del params
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed = TrainSession.resume(store, RESUME_NS)
+    state = resumed.restore_model(template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del template
+    gc.collect()
+    stage_peak("template + restore")
+    if resumed.resume_step != 4:
+        raise AssertionError(f"resume: resume_step {resumed.resume_step}, want 4")
+    got = leaf_fingerprints(torch, state)
+    moved = [p for (p, *a), (_, *b) in zip(got, bound) if a != b]
+    say(f"TrainSession.resume + restore_model {restore_s:.3f} s = "
+        f"{state_bytes / restore_s / 1e9:.3f} GB/s; resume_step {resumed.resume_step}; "
+        f"leaves bit-identical to the bound state: {len(got) - len(moved)} of {len(got)}")
+    if moved:
+        raise AssertionError(f"resume: restored leaves differ from the bound state: {moved}")
+    grids_b, first_step_end = [], []
+
+    def on_batch_b(i, t):
+        grids_b.append(t.tobytes())
+        first_step_end.append(time.perf_counter())
+
+    loop = new_loop(resumed, state["params"], state["opt"])
+    with loop:
+        losses_b = loop.run(3, on_batch=on_batch_b).losses
+    del state
+    stage_peak("resumed steps")
+    rel = [abs(b - a) / abs(a) for a, b in zip(losses_a[4:], losses_b)]
+    say(f"resume to the end of the first resumed step {first_step_end[0] - t0:.3f} s; "
+        f"run A steps 5-7 losses {losses_a[4:]}; resumed {losses_b}; largest relative "
+        f"difference {max(rel):.3e} (limit {RESUME_LOSS_RTOL:g}); grids byte-identical: "
+        f"{grids_b == grids_a}")
+    if grids_b != grids_a or max(rel) > RESUME_LOSS_RTOL:
+        raise AssertionError("resume: the resumed steps are not run A's steps 5-7")
+
+    # -- negative control: the orphan upload with the aligned cursor ---------------------
+    orphan, _ = load_model_state(resumed.ns, orphan_key,
+                                 {"params": loop.params, "opt": loop.opt_state})
+    resumed.close()
+    del loop
+    gc.collect()
+    stage_peak("orphan load")
+    control = TrainSession.resume(store, RESUME_NS)
+    loop = new_loop(control, orphan["params"], orphan["opt"])
+    with loop:
+        loss_c = loop.run(1).losses[0]
+    control.close()
+    del loop, orphan
+    gc.collect()
+    stage_peak("control step")
+    off = abs(loss_c - losses_a[4]) / abs(losses_a[4])
+    if off <= RESUME_LOSS_RTOL:
+        raise AssertionError("resume control (the orphan upload with the aligned cursor): "
+                             "the loss check passed it")
+    say(f"control (the killed step-7 upload with the step-4 cursor): loss {loss_c:.6f} vs "
+        f"{losses_a[4]:.6f}, relative difference {off:.3e} = {off / RESUME_LOSS_RTOL:.3g}x "
+        f"the limit: refused")
+
+    # -- fsck -------------------------------------------------------------------------
+    report = fsck(session.ns)
+    kinds = {i.kind: i for i in report.issues}
+    say(f"{report.summary()}; " + "; ".join(str(i) for i in report.issues))
+    if any(i.severity == "error" for i in report.issues) or not (
+            "pending-model-checkpoint" in kinds or "orphan-model-checkpoint" in kinds):
+        raise AssertionError("resume: fsck reports an error or misses the killed upload")
+
+    launches = dict(kcommon.launches)
+    bad = [i for i, n in enumerate(per_step) if n != want]
+    say(f"launches over {len(per_step)} steps {launches}; a step {per_step[0]} (want {want}); "
+        f"max_memory_allocated {max(peaks.values()):.2f} GiB (by stage: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items()) + f" GiB); phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    if bad or len(per_step) != 11:
+        raise AssertionError(f"resume: steps {bad} launched other than {want}")
+    return launches
+
+
 def phase_train_vs_plain(torch, label, cfg, control_name, control):
     """A 2-layer full-width cut: one train step's loss, gradients and grad
     norm, kernel path against plain path, and a negative control that must
@@ -1142,7 +1414,7 @@ def main() -> int:
                     help="comma-separated kernel names: build and check only "
                          "these (phases 1-3) and skip the serving phases")
     ap.add_argument("--skip-serving", action="store_true",
-                    help="run phases 1-3 and the training phases 6-9 only")
+                    help="run phases 1-3 and the training phases 6-10 only")
     args = ap.parse_args()
     import torch
 
@@ -1234,6 +1506,12 @@ def main() -> int:
     # -- 9. the granite-8b cut of phase 6, trained off the tgb data plane ------------------
     paths["granite-8b fused"] = phase_fused(
         torch, kcommon, granite.replace(num_layers=GRANITE_TRAIN_LAYERS), granite_ms)
+    free()
+
+    # -- 10. the same cut through a TrainSession: aligned checkpoint, kill, resume ---------
+    paths["granite-8b resume"] = phase_resume(
+        torch, kcommon, granite.replace(num_layers=GRANITE_TRAIN_LAYERS), smi)
+    free()
 
     # launches: each kernel's count on the serving path it was ported for
     # (granite-8b for K1-K3, rwkv6-3b for K4; their training paths with

@@ -30,7 +30,8 @@ from repro_torch.core.manifest import (DatasetView, ManifestStore,
                                        StepUnavailable, open_manifest_store,
                                        read_shard_config, write_shard_config)
 from repro_torch.core.objectstore import (ConditionalPutFailed,
-                                          FileObjectStore, IOPool,
+                                          FaultInjector, FileObjectStore,
+                                          InjectedCrash, IOPool,
                                           LatencyModel, MemoryObjectStore,
                                           Namespace, NoSuchKey, ObjectStore,
                                           ZERO_LATENCY)
@@ -56,7 +57,8 @@ __all__ = [
     "DatasetView", "ManifestStore", "ProducerState", "ShardedManifestStore",
     "StepUnavailable", "open_manifest_store", "read_shard_config",
     "write_shard_config",
-    "ConditionalPutFailed", "FileObjectStore", "IOPool", "LatencyModel",
+    "ConditionalPutFailed", "FaultInjector", "FileObjectStore",
+    "InjectedCrash", "IOPool", "LatencyModel",
     "MemoryObjectStore", "Namespace", "NoSuchKey", "ObjectStore",
     "ZERO_LATENCY",
     "LatencyWindow", "percentile", "percentiles",

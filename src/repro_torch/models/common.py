@@ -79,14 +79,16 @@ def tree_leaves(tree) -> List:
 def tree_unflatten(like, leaves: List):
     """The nested dict of ``like``'s structure holding ``leaves``, given in
     ``tree_leaves`` order."""
-    it = iter(leaves)
+    return _unflatten(like, iter(leaves))
 
-    def build(tree):
-        if isinstance(tree, dict):
-            return {k: build(tree[k]) for k in sorted(tree)}
-        return next(it)
 
-    return build(like)
+def _unflatten(tree, it):
+    # a module-level function, not a recursive closure: a closure that
+    # calls itself is a reference cycle, and one holding ``it`` kept the
+    # leaves (a step's gradients) alive until the cycle collector ran
+    if isinstance(tree, dict):
+        return {k: _unflatten(tree[k], it) for k in sorted(tree)}
+    return next(it)
 
 
 def init_param(spec: ParamSpec, gen: torch.Generator,

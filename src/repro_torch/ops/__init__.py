@@ -1,0 +1,17 @@
+"""``repro_torch.ops`` (port of ``repro.ops``) — the operator toolkit's
+integrity checker.
+
+Programmatic API::
+
+    from repro_torch.core import Namespace
+    from repro_torch.ops import fsck
+
+    report = fsck(Namespace(store, "runs/myjob"), repair=False)
+    assert report.clean, report.summary()
+
+The reference's CLI (``ops/cli.py``) and ``inspect_run`` (``ops/inspect.py``)
+are not ported yet: ROADMAP Queue 1, item 9.
+"""
+from repro_torch.ops.fsck import FsckIssue, FsckReport, fsck, list_streams
+
+__all__ = ["FsckIssue", "FsckReport", "fsck", "list_streams"]

@@ -8,11 +8,8 @@ over the same weights (``repro_torch.convert``), at depth 0 and 2, must
 consume the same grids and reach the same losses within the whole-model fp32
 tolerance, 1e-4 (``tests/test_models_smoke.py:85-97``).
 
-The twins of ``test_kill_and_resume_replays_identical_batches_and_losses``
-and ``test_fused_loop_over_mixed_streams_aligns_composite_cursors`` wait for
-``TrainSession`` and the streams package (ROADMAP Queue 1, 2d and 2e); the
-token-level half of kill-and-resume (restore the cursors, replay
-byte-identical grids) is tested here.
+The twin of ``test_fused_loop_over_mixed_streams_aligns_composite_cursors``
+waits for the streams package (ROADMAP Queue 1, item 2e).
 """
 from __future__ import annotations
 
@@ -32,6 +29,7 @@ from repro_torch.dataplane.types import Batch, UnsupportedOperation  # noqa: E40
 from repro_torch.models import init_params, param_specs  # noqa: E402
 from repro_torch.models.common import tree_leaves  # noqa: E402
 from repro_torch.obs.tracer import disable_tracing, enable_tracing  # noqa: E402
+from repro_torch.run import TrainSession  # noqa: E402
 from repro_torch.train import (OptimizerConfig, StepConfig,  # noqa: E402
                                init_opt_state, make_train_step)
 from repro_torch.train.pipeline import (FusedTrainLoop,  # noqa: E402
@@ -95,6 +93,59 @@ def _loop(src, step_fn, params, opt, **kw) -> FusedTrainLoop:
     kw.setdefault("depth", 2)
     return FusedTrainLoop(src, step_fn, params, opt, topology=TOPO,
                           timeout_s=30.0, device="cpu", **kw)
+
+
+# ---------------------------------------------------------------------------
+# exactly-once kill-and-resume
+# ---------------------------------------------------------------------------
+
+def test_kill_and_resume_replays_identical_batches_and_losses(tiny_step):
+    cfg, step_fn, fresh = tiny_step
+    ns = "runs/fused_resume"
+
+    # golden: 10 uninterrupted steps
+    store_a = MemoryObjectStore()
+    sess_a = TrainSession(store_a, TOPO, namespace=ns)
+    _produce(sess_a, 12, cfg.vocab_size)
+    golden_batches = []
+    params, opt = fresh()
+    with _loop(_fan_in(sess_a), step_fn, params, opt) as loop:
+        rep = loop.run(10, on_batch=lambda s, t: golden_batches.append(
+            t.tobytes()))
+    golden_losses = rep.losses
+    sess_a.close()
+
+    # run B: 4 steps, aligned checkpoint, then die with the ring staged ahead
+    store_b = MemoryObjectStore()
+    sess_b = TrainSession(store_b, TOPO, namespace=ns)
+    _produce(sess_b, 12, cfg.vocab_size)
+    b_batches = []
+    params, opt = fresh()
+    loop_b = _loop(_fan_in(sess_b), step_fn, params, opt)
+    with loop_b:
+        rep_b = loop_b.run(4, on_batch=lambda s, t: b_batches.append(
+            t.tobytes()))
+        entry = loop_b.aligned_checkpoint(
+            sess_b, {"params": loop_b.params, "opt": loop_b.opt_state})
+    assert entry.step == 4      # bound at the consumed frontier, not the ring
+    sess_b.close()              # crash: staged-but-unconsumed batches lost
+
+    # resume: same namespace, fresh process state
+    sess_c = TrainSession.resume(store_b, ns)
+    assert sess_c.resume_step == 4
+    params, opt = fresh()
+    state = sess_c.restore_model({"params": params, "opt": opt})
+    loop_c = _loop(_fan_in(sess_c), step_fn, state["params"], state["opt"])
+    with loop_c:
+        rep_c = loop_c.run(6, on_batch=lambda s, t: b_batches.append(
+            t.tobytes()))
+    sess_c.close()
+
+    # byte-identical packed batches across the kill: exactly-once at the
+    # token level, not just the TGB level
+    assert b_batches == golden_batches
+    np.testing.assert_allclose(rep_b.losses + rep_c.losses, golden_losses,
+                               rtol=1e-6)
 
 
 def test_packing_source_cannot_align_a_staged_ring():
@@ -308,9 +359,9 @@ def _wait_for_staged(loop, deadline_s: float = 10.0) -> None:
 
 
 def test_stop_rewinds_cursors_to_consumed_frontier(tiny_step):
-    """The cursor half of the reference test (its checkpoint half needs
-    ``TrainSession``): after stop() with staged-but-unconsumed entries the
-    source names exactly the next unconsumed batch."""
+    """After stop() with staged-but-unconsumed entries the source names
+    exactly the next unconsumed batch (the cursor half of the kill and
+    resume above)."""
     cfg, step_fn, fresh = tiny_step
     params, opt = fresh()
     sess = open_dataplane(MemoryObjectStore(), TOPO,

@@ -491,3 +491,36 @@ def test_fused_loop_refuses_params_off_its_device(cuda):
     with pytest.raises(ValueError, match="parameter lies on cpu"):
         FusedTrainLoop(_InstantSource(), _checksum_step,
                        {"w": torch.zeros(4)}, {}, depth=2)
+
+
+def test_checkpoint_of_cuda_tensors_restores_bit_identically(cuda):
+    """A state of CUDA tensors (fp32, bf16, 0-d int32) through a
+    MemoryObjectStore restores bit for bit onto its template leaves'
+    devices: the card for tensor leaves, the host for a CPU leaf."""
+    from repro_torch.core import MemoryObjectStore, Namespace
+    from repro_torch.train.checkpoint import (load_model_state,
+                                              upload_model_state)
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    state = {"params": {"w": torch.randn(257, 64, generator=gen,
+                                         device=cuda),
+                        "b": _randn(gen, (3, 4096), torch.bfloat16, cuda)},
+             "opt": {"step": torch.tensor(7, dtype=torch.int32,
+                                          device=cuda)}}
+    ns = Namespace(MemoryObjectStore(), "runs/gpu_ckpt")
+    key = upload_model_state(ns, 7, state)
+    template = {"params": {"w": torch.zeros(1, device=cuda),
+                           "b": torch.zeros(1)},
+                "opt": {"step": torch.zeros(1, device=cuda)}}
+    got, doc = load_model_state(ns, key, template)
+    assert [(e["path"], e["dtype"]) for e in doc["leaves"]] == [
+        ("opt/step", "int32"), ("params/b", "bfloat16"),
+        ("params/w", "float32")]
+    for (a, b, dev) in ((got["params"]["w"], state["params"]["w"], "cuda"),
+                        (got["params"]["b"], state["params"]["b"], "cpu"),
+                        (got["opt"]["step"], state["opt"]["step"], "cuda")):
+        assert a.device.type == dev
+        assert (a.dtype, a.shape) == (b.dtype, b.shape)
+        int_dt = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+                  torch.int32: torch.int32}[b.dtype]
+        assert torch.equal(a.cpu().view(int_dt), b.cpu().view(int_dt))

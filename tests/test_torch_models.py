@@ -215,16 +215,19 @@ def test_frontend_embeds_are_refused_until_a_frontend_is_ported(entry):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every port module, ``chip_smoke.py`` and the port's example import
-    with ``jax``, ``repro`` and ``msgpack`` made unimportable (the card's
-    machine has none of them), and none is loaded afterwards."""
+    """Every port module (``repro_torch.run``, ``repro_torch.ops``,
+    ``repro_torch.train.checkpoint`` and ``repro_torch.data``'s sources and
+    pipeline among them), ``chip_smoke.py`` and the port's examples import
+    with ``jax``, ``repro``, ``msgpack`` and ``ml_dtypes`` made unimportable
+    (the card's machine has none of them), and none is loaded
+    afterwards."""
     modules = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
         .removesuffix(".__init__")
         for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
     code = (
         "import importlib, importlib.abc, json, sys\n"
-        "BLOCKED = ('jax', 'repro', 'msgpack')\n"
+        "BLOCKED = ('jax', 'repro', 'msgpack', 'ml_dtypes')\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in BLOCKED:\n"
@@ -233,7 +236,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'examples')\n"
-        "import train_fused_torch\n"
+        "import train_fused_torch, train_e2e_torch\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
         "print(json.dumps(bad))\n")
     out = subprocess.run(
@@ -242,4 +245,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         env={"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     assert len(modules) > 10
+    assert {"repro_torch.run", "repro_torch.run.session", "repro_torch.ops",
+            "repro_torch.ops.fsck", "repro_torch.train.checkpoint",
+            "repro_torch.data.sources",
+            "repro_torch.data.pipeline"} <= set(modules)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []

@@ -3,9 +3,10 @@
 The data plane's wire documents must be byte-identical between the packages,
 so a store written by one reads back in the other. Each document type is
 taken from a store the JAX package wrote (TGB footers, flat and delta
-manifests, the shard config, watermarks, the trim marker) or minted by it (a
-Checkpoint token), re-encoded by the port and compared byte for byte; the
-port's own encoders are held to the same bytes. Seeded random trees of the
+manifests, the shard config, watermarks, the trim marker, an aligned run's
+RunManifest entries and model-checkpoint ``MANIFEST.ckpt`` indexes) or
+minted by it (a Checkpoint token), re-encoded by the port and compared
+byte for byte; the port's own encoders are held to the same bytes. Seeded random trees of the
 codec's subset check ``packb`` at both ``use_bin_type`` settings and
 ``unpackb`` against ``msgpack.unpackb``.
 """
@@ -17,11 +18,13 @@ import pytest
 
 pytest.importorskip("torch")
 msgpack = pytest.importorskip("msgpack")
+ml_dtypes = pytest.importorskip("ml_dtypes")
 
 from repro.core import MemoryObjectStore  # noqa: E402
 from repro.core.manifest import MANIFEST_FORMAT_FLAT  # noqa: E402
 from repro.core.tgb import TGBFooter as JaxFooter  # noqa: E402
 from repro.dataplane import Topology, open_dataplane  # noqa: E402
+from repro.run import TrainSession  # noqa: E402
 from repro_torch.core import _msgpack  # noqa: E402
 from repro_torch.core import manifest as tmanifest  # noqa: E402
 from repro_torch.core.lifecycle import Watermark  # noqa: E402
@@ -29,6 +32,7 @@ from repro_torch.core.objectstore import MemoryObjectStore as TStore  # noqa: E4
 from repro_torch.core.objectstore import Namespace  # noqa: E402
 from repro_torch.core.tgb import TGBFooter  # noqa: E402
 from repro_torch.dataplane.types import Checkpoint  # noqa: E402
+from repro_torch.run import RunManifest  # noqa: E402
 
 TOPO = Topology(dp=2, cp=2, global_batch=4, seq_len=16)
 
@@ -64,9 +68,26 @@ def jax_documents():
     with sharded.writer("w0") as w:
         w.write_tokens(tokens)
     sharded.close()
+    # an aligned run: model checkpoints and RunManifest entries, one of
+    # them a retry-tagged upload, bf16 and 0-d leaves among the model's
+    run = TrainSession(store, TOPO, namespace="runs/aligned")
+    with run.writer("w0") as w:
+        w.write_tokens(tokens)
+    run_readers = [run.reader(dp_rank=d, cp_rank=c)
+                   for d in range(2) for c in range(2)]
+    for step in range(2):
+        for r in run_readers:
+            r.next_batch(timeout_s=5)
+        run.checkpoint({"params": {"w": np.arange(6, dtype=np.float32)
+                                   .reshape(2, 3),
+                                   "b": np.ones(3, ml_dtypes.bfloat16)},
+                        "opt": {"step": np.int32(step + 1)}})
+    run.checkpoint({"w": np.float32(2.0)})   # the same step: a retry dir
+    run.close()
 
     docs = {"footer": [], "manifest": [], "shard_config": [],
-            "watermark": [], "trim_marker": [], "checkpoint": []}
+            "watermark": [], "trim_marker": [], "checkpoint": [],
+            "runmanifest": [], "model_manifest": []}
     for key in store.list("runs/"):
         raw = store.get(key)
         if key.endswith(".tgb"):
@@ -79,6 +100,10 @@ def jax_documents():
             docs["watermark"].append(raw)
         elif key.endswith("trim.marker"):
             docs["trim_marker"].append(raw)
+        elif key.endswith(".rm"):
+            docs["runmanifest"].append(raw)
+        elif key.endswith("MANIFEST.ckpt"):
+            docs["model_manifest"].append(raw)
     docs["checkpoint"] = [base64.urlsafe_b64decode(t) for t in tokens_ck]
     for kind, raws in docs.items():
         assert raws, f"the JAX run wrote no {kind} document"
@@ -86,7 +111,7 @@ def jax_documents():
 
 
 KINDS = ["footer", "manifest", "shard_config", "watermark", "trim_marker",
-         "checkpoint"]
+         "checkpoint", "runmanifest", "model_manifest"]
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -109,6 +134,9 @@ def test_port_encoders_write_the_reference_bytes(jax_documents):
     for raw in jax_documents["checkpoint"]:
         token = base64.urlsafe_b64encode(raw).decode("ascii")
         assert Checkpoint.decode(token).encode() == token
+    assert len(jax_documents["runmanifest"]) == 3
+    for raw in jax_documents["runmanifest"]:
+        assert RunManifest.unpack(raw).pack() == raw
     # flat manifests: decode with the port, re-encode the view
     flat = [r for r in jax_documents["manifest"]
             if msgpack.unpackb(r, raw=False, strict_map_key=False)["format"]

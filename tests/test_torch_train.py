@@ -477,3 +477,40 @@ def test_train_step_refuses_a_batch_that_does_not_split():
     with pytest.raises(ValueError, match="microbatches"):
         step(params, init_opt_state(params),
              {"tokens": torch.zeros(4, 8, dtype=torch.int64)})
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_gradients_are_freed_without_the_cycle_collector(arch):
+    """A step's gradients die with their last reference. With the cycle
+    collector off, as between its runs, a reference cycle around the
+    gradient tree (a self-calling closure in ``tree_unflatten`` once) kept
+    all of them alive: 8 GiB on the card at granite-8b's 8-layer width."""
+    import gc
+    import weakref
+
+    _jcfg, tcfg, _jparams, tparams, tokens = _model(arch)
+    batch = {"tokens": torch.from_numpy(tokens)}
+    # torch imports torch._dynamo at the first checkpointed layer, and that
+    # import keeps the calling frames (and their locals) alive: warm it up
+    loss_and_grads(tcfg, tparams, batch)
+    gc.collect()
+    gc.disable()
+    try:
+        _loss, _metrics, grads = loss_and_grads(tcfg, tparams, batch)
+        refs = [weakref.ref(g) for g in tree_leaves(grads)]
+        del grads
+        assert [r() for r in refs] == [None] * len(refs)
+        step = make_train_step(tcfg, OptimizerConfig(), StepConfig())
+        opt = init_opt_state(tparams)
+        def tensors():
+            # type(), not isinstance(): the latter reads ``__class__``,
+            # which some of torch's deprecated module attributes warn on
+            return [t for t in gc.get_objects()
+                    if issubclass(type(t), torch.Tensor)]
+
+        before = {id(t) for t in tensors()}
+        params, opt, _m = step(tparams, opt, batch)
+        left = [t for t in tensors() if id(t) not in before and t.numel() > 1]
+        assert left == [], [tuple(t.shape) for t in left]
+    finally:
+        gc.enable()
