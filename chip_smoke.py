@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            (from the repository root, one CUDA card)
     python3 chip_smoke.py --kernels rmsnorm,wkv6   (phases 1-3 for those only)
-    python3 chip_smoke.py --skip-serving           (phases 1-3 and 6-10)
+    python3 chip_smoke.py --skip-serving           (phases 1-3 and 6-11)
 
 Phases, each of which raises (exit code != 0) on failure:
 
@@ -58,23 +58,35 @@ Phases, each of which raises (exit code != 0) on failure:
    within GRAD_NORM_RTOL; one negative control per model changes only one
    kernel's backward rule (K1's recompute without the causal mask; K4's on
    time-reversed inputs), and the check must refuse it.
-9. The granite-8b cut of phase 6 trained off the tgb data plane: a writer
-   commits 14 global batches of 4 x 1024 tokens (vocab 49152) as TGBs into
-   a ``MemoryObjectStore`` with the S3-class ``LatencyModel()``; one reader
-   per (d, c) of dp 2 x cp 2 range-reads its 4 KiB slice, and
-   ``FusedTrainLoop`` fans them in and stages each grid on the card
-   (pinned slots, side-stream copy). Depth 0 and depth 2 (readers
-   prefetching 4), 2 warm-up and 6 timed steps each from cursor 0, then a
-   replay of steps 2-4 from a cursor snapshot; depth 2 runs 2 more steps
-   under torch.profiler for its device-busy share. Every grid must equal the
-   host packer's (``GlobalBatchPacker`` + ``assemble_grid`` on the stream,
-   no store), every step's device tokens its host tokens, every step's
-   launches phase 6's, every loss be finite, the readers' cursors equal the
-   consumed count after ``stop()``, and the replay be byte-identical; a
-   source that swaps each grid's two DP halves must be refused. Printed:
-   tokens/s and the data_wait / h2d / compute / other split of each arm,
-   per-step ms, compute ms beside phase 6's step ms, the attribution
-   against a roofline of 6 N tokens / 989 TFLOP/s, and peak memory.
+9. fig17's three arms (``benchmarks/fig17_fused_train.py``) on the card:
+   the granite-8b cut of phase 6 trained through ``FusedTrainLoop`` off
+   each data plane, at depth 0 then 2, colocated, mq, tgb at each depth, 2
+   warm-up and 6 timed steps an arm, every arm from one saved copy of the
+   state on the card. The stream is 14 global batches of 4 x 1024 tokens
+   (vocab 49152) at dp 2 x cp 2. colocated: fig17's worker pool
+   (``ColocatedConfig()``, 0.2 ms a sample, 4 sample indices a pull, each
+   index its 1024-token slice of the stream) packed by
+   ``PackingTokenSource`` on the staging thread; mq: one message a TGB in a
+   ``KafkaSimBroker(BrokerConfig())``, whole-message fetches by one reader
+   per (d, c); tgb: TGBs in a ``MemoryObjectStore`` with the S3-class
+   ``LatencyModel()``, one reader per (d, c) range-reading its 4 KiB slice
+   (prefetching 4 at depth 2). Every tgb and mq grid must equal the host
+   packer's, every colocated grid the packer's grid over the slices its
+   delivered indices name, every step's device tokens its host tokens and
+   its launches phase 6's, the mq and tgb arms' losses at one depth
+   bit-identical, and the mq readers' read amplification above D x C.
+   Printed per arm: tokens/s at the median step (fig17's reading) and over
+   the run, the data_wait / h2d / compute / other split,
+   compute_vs_roofline against ``launch/roofline.ideal_step_s`` (6 N
+   tokens / 989 TFLOP/s), K2 and K1 launches a step, peak memory. The
+   phase raises on ``benchmarks/check_fig17.py``'s gates for the tgb arm
+   at depth 2 (data_wait < 15%, >= 0.9x the colocated arm's tokens/s,
+   >= 1.15x its depth-0 arm's, whose data_wait is 0.1 higher) and their
+   roofline cross-check; then a replay of the tgb depth-2 arm's steps 2-4
+   from a cursor snapshot, byte-identical, with the readers' cursors at the
+   consumed frontier after ``stop()``; the tgb depth-2 arm runs 2 more
+   steps under torch.profiler; a source that swaps each grid's two DP
+   halves must be refused.
 
 10. The cut of phase 9, with its settings (dp 2 x cp 2, 4 x 1024 tokens,
    depth 2, readers prefetching 4), trained through a ``TrainSession`` on
@@ -97,13 +109,31 @@ Phases, each of which raises (exit code != 0) on failure:
    the wall from resume to the end of the first resumed step, peak device
    memory, launches (33 / 16 / 0 a step) and the phase's seconds.
 
+11. Failure isolation and a brownout on the cut of phase 9 (depth 2, 12
+   steps a run, one state): (a) the colocated pool dies after step 3
+   (``inject_crash``) and the loop must raise ``BatchTimeout`` within its
+   5 s timeout, which the isolation check (every step run, every grid the
+   packer's, once) refuses: the negative control; (b) a live tgb producer
+   thread (``run_producer_loop``, 0.2 s a TGB) dies before its 5th TGB
+   without finalizing, a replacement writer recovers on enter from the
+   manifest 1 s later and continues, and the trainer must pass the same
+   check, with the data_wait of the steps around the kill printed; (c) the
+   tgb arm through ``FaultyObjectStore(MemoryObjectStore(LatencyModel()),
+   FaultPolicy(slow_get_rate=0.15, slow_get_s=0.06))`` with fig16's storm
+   (``BrownoutPhase(target_rate=120, retry_after_s=0.1)``) over the middle
+   third of the run, ``resilience=`` fig16's client, a live producer with
+   ``spill_limit=256`` and flight-recorder snapshots: grids and losses
+   bit-identical to a fault-free run from the same state, throttles seen >
+   0, the data_wait share of each third, and the producer's latest
+   snapshot under ``<ns>/obs/`` equal to the live registry.
+
 The last lines are the ``nvidia-smi`` name/power-limit line as it prints
 it, one JSON object with every kernel's numbers, and ``{"ok": true,
 "device": {...}}``. A kernel's ``launches`` is its count on the serving path
 it was ported for (granite-8b for RMSNorm and both attention kernels,
 rwkv6-3b for WKV6); ``launches_by_path`` gives each path's count, the
-training paths' over their 3 steps, the fused path's over its 21, the
-resume path's over its 11.
+training paths' over their 3 steps, the fused path's over its 53, the
+resume path's over its 11, the failure path's over its steps.
 """
 from __future__ import annotations
 
@@ -167,12 +197,21 @@ TRAIN_OPT = dict(learning_rate=1e-4, warmup_steps=1, total_steps=10)
 TRAIN_LOSS_RTOL = 1e-3
 GRAD_RMS_TOL = 5e-2
 GRAD_NORM_RTOL = 1e-2
-# phase 9: the fused loop over the tgb data plane, the granite-8b cut of
-# phase 6 with 4 x 1024 tokens a step spread over dp 2 x cp 2 readers
+# phase 9: fig17's three arms (benchmarks/fig17_fused_train.py), the
+# granite-8b cut of phase 6 with 4 x 1024 tokens a step over dp 2 x cp 2
 FUSED_DP, FUSED_CP = 2, 2
 FUSED_BATCHES = 14            # the stream of tests/test_fused_train.py:50-52
 FUSED_WARMUP, FUSED_TIMED = 2, 6
-FUSED_PROFILED = 2            # depth 2's steps under torch.profiler
+FUSED_PROFILED = 2            # the tgb depth-2 arm's steps under torch.profiler
+FIG17_DEPTHS = (0, 2)
+FIG17_BACKENDS = ("colocated", "mq", "tgb")   # fig17's order at each depth
+COLOC_COST_S = 0.0002         # fig17's preprocessing seconds a sample
+# benchmarks/check_fig17.py's gates, on the tgb arm at depth 2
+FIG17_MAX_DATA_WAIT = 0.15    # data_wait share of the step
+FIG17_VS_COLOCATED = 0.9      # tokens/s against the colocated arm's
+FIG17_VS_DEPTH0 = 1.15        # tokens/s against its own depth-0 arm's ...
+FIG17_WAIT_DROP = 0.1         # ... whose data_wait share is this much higher
+FIG17_ROOFLINE_SPREAD = 2.5   # compute_vs_roofline flat across arms
 # phase 10: phase 9's settings through a TrainSession, an aligned checkpoint,
 # a kill between a later upload and its commit, and the resume
 RESUME_NS = "runs/resume"
@@ -180,6 +219,15 @@ RESUME_NS = "runs/resume"
 # reference's kill-and-resume test (tests/test_fused_train.py:115-116); the
 # same state, batches and kernels should give bit-equal losses
 RESUME_LOSS_RTOL = 1e-6
+# phase 11: failure isolation and a brownout, on the cut of phase 9 at depth 2
+FAILURE_STEPS = 12            # of the FUSED_BATCHES-batch stream
+CRASH_AFTER_STEP = 3          # (a) the colocated pool dies after this step
+CRASH_TIMEOUT_S = 5.0         # (a) the loop's timeout
+KILL_AFTER_TGBS = 5           # (b) the tgb producer dies before this TGB
+PRODUCE_DELAY_S = 0.2         # (b, c) the live producer's seconds a TGB
+RESTART_S = 1.0               # (b) seconds until the replacement writer enters
+BROWNOUT_WARMUP_TGBS = 4      # (c) TGBs committed before the run
+OBS_SNAP_S = 0.5              # (c) the flight recorder's interval
 # the forward kernels' names as the profiler lists them
 KERNEL_SYMBOLS = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "fa_fwd_kernel",
                   "decode_attention": "decode_kernel", "wkv6": "wkv6_kernel"}
@@ -929,45 +977,112 @@ class GridSource:
         self.inner.stop_prefetch()
 
 
-def phase_fused(torch, kcommon, cfg, phase6_ms):
-    """granite-8b (8 of 36 layers), trained off the tgb data plane through
-    ``FusedTrainLoop``: TGBs committed into a ``MemoryObjectStore`` with
-    S3-class latency, range-read by one reader per (d, c), staged on the
-    card by the loop. Three runs (depth 0, depth 2, a replay from a cursor
-    snapshot) and a negative control; returns the launches of all of them."""
+def fused_stream(np, cfg):
+    """Phase 9's token stream: FUSED_BATCHES global batches, token t at
+    position p = (7 p + 3) mod vocab."""
+    n = FUSED_BATCHES * TRAIN_GB * TRAIN_SEQ
+    return ((np.arange(n) * 7 + 3) % cfg.vocab_size).astype(np.int32)
+
+
+def packer_grids(np, topo, tokens):
+    """The grids the host packer makes from ``tokens``, without a store."""
+    from repro_torch.data.packing import GlobalBatchPacker, assemble_grid
+
+    packer = GlobalBatchPacker(TRAIN_GB, TRAIN_SEQ, topo.dp, topo.cp)
+    return [assemble_grid(b.slices, TRAIN_GB, TRAIN_SEQ, topo.dp, topo.cp)
+            for b in packer.add_tokens(tokens)]
+
+
+def colocated_source(np, topo, vocab):
+    """fig17's colocated arm (``_source_colocated``): a ``ColocatedConfig()``
+    worker pool, COLOC_COST_S a sample, TRAIN_GB sample indices a pull, each
+    index mapped to its TRAIN_SEQ-token slice of phase 9's stream and packed
+    by ``PackingTokenSource`` on the staging thread. Returns (source, the
+    pool's writer, which is started, the indices of every pull in order,
+    the grid a list of indices must pack to)."""
+    from repro_torch.data import ColocatedConfig
+    from repro_torch.dataplane import open_dataplane
+    from repro_torch.train.pipeline import PackingTokenSource
+
+    def sample_tokens(indices):
+        offs = indices.astype(np.int64)[:, None] * TRAIN_SEQ + np.arange(TRAIN_SEQ)[None, :]
+        return ((offs.ravel() * 7 + 3) % vocab).astype(np.int32)
+
+    session = open_dataplane(None, topo, backend="colocated", namespace="runs/fused",
+                             config=ColocatedConfig(),
+                             preprocess_cost_s=lambda i: COLOC_COST_S,
+                             batch_cpu_items=TRAIN_GB)
+    writer, reader, pulled = session.writer(), session.reader(), []
+
+    def pull(timeout_s):
+        indices = np.frombuffer(reader.next_batch(timeout_s=timeout_s).payload,
+                                dtype=np.int32)
+        pulled.append(indices.copy())
+        return sample_tokens(indices)
+
+    writer.__enter__()  # start the worker pool
+    return (PackingTokenSource(pull, topo), writer, pulled,
+            lambda indices: packer_grids(np, topo, sample_tokens(indices))[0])
+
+
+def state_leaves(params, opt):
+    from repro_torch.models.common import tree_leaves
+
+    return tree_leaves({"params": params, "opt": opt})
+
+
+def restore_state(torch, params, opt, saved):
+    """Copy ``saved`` (leaves in ``state_leaves`` order) into the state the
+    train step updates in place."""
+    with torch.no_grad():
+        for t, s in zip(state_leaves(params, opt), saved):
+            t.copy_(s)
+
+
+def phase_fused(torch, kcommon, cfg, phase6_ms, smi):
+    """fig17's three arms on the card: the granite-8b cut (8 of 36 layers)
+    trained through ``FusedTrainLoop`` off the colocated pool, the mq broker
+    and the tgb store (S3-class latency), at depth 0 and 2, each arm from
+    one saved state; check_fig17's gates on the tgb arm; then a replay of
+    the tgb depth-2 arm from a cursor snapshot and a negative control.
+    Returns the launches of the arms and the replay."""
     import numpy as np
 
     from repro_torch.core import LatencyModel, MemoryObjectStore
-    from repro_torch.data.packing import GlobalBatchPacker, assemble_grid
+    from repro_torch.data import BrokerConfig, KafkaSimBroker
     from repro_torch.dataplane import Topology, open_dataplane
+    from repro_torch.launch.roofline import PEAK_FLOPS, ideal_step_s
     from repro_torch.models import init_params, param_specs
     from repro_torch.train import (OptimizerConfig, StepConfig, init_opt_state,
                                    make_train_step)
     from repro_torch.train.pipeline import FusedTrainLoop, ReaderFanInSource
 
     topo = Topology(dp=FUSED_DP, cp=FUSED_CP, global_batch=TRAIN_GB, seq_len=TRAIN_SEQ)
-    n = FUSED_BATCHES * TRAIN_GB * TRAIN_SEQ
-    stream = ((np.arange(n) * 7 + 3) % cfg.vocab_size).astype(np.int32)
-    packer = GlobalBatchPacker(TRAIN_GB, TRAIN_SEQ, topo.dp, topo.cp)
-    host_grids = [assemble_grid(b.slices, TRAIN_GB, TRAIN_SEQ, topo.dp, topo.cp)
-                  for b in packer.add_tokens(stream)]
-    session = open_dataplane(MemoryObjectStore(latency=LatencyModel()), topo,
-                             namespace="runs/fused")
-    t0 = time.monotonic()
-    with session.writer("w0") as w:
-        offsets = w.write_tokens(stream)
-    log(f"fused: {len(offsets)} TGBs of {TRAIN_GB} x {TRAIN_SEQ} tokens "
-        f"({TRAIN_GB * TRAIN_SEQ * 4 // 1024} KiB, a rank's slice "
-        f"{TRAIN_GB * TRAIN_SEQ * 4 // topo.world // 1024} KiB; dp {topo.dp}, cp {topo.cp}) "
-        f"committed in {time.monotonic() - t0:.2f} s to a MemoryObjectStore with "
-        f"LatencyModel() (S3-class)")
-    readers = [session.reader(dp_rank=d, cp_rank=c, prefetch_depth=4)
-               for d in range(topo.dp) for c in range(topo.cp)]
-    fan_in = ReaderFanInSource(readers, topo)
-    start = fan_in.cursors()
+    stream = fused_stream(np, cfg)
+    host_grids = packer_grids(np, topo, stream)
+    sessions = {"tgb": open_dataplane(MemoryObjectStore(latency=LatencyModel()), topo,
+                                      namespace="runs/fused"),
+                "mq": open_dataplane(KafkaSimBroker(BrokerConfig()), topo, backend="mq",
+                                     namespace="runs/fused")}
+    for backend, session in sessions.items():
+        t0 = time.monotonic()
+        with session.writer("w0") as w:
+            offsets = w.write_tokens(stream)
+        log(f"fused: {len(offsets)} TGBs of {TRAIN_GB} x {TRAIN_SEQ} tokens "
+            f"({TRAIN_GB * TRAIN_SEQ * 4 // 1024} KiB, a rank's slice "
+            f"{TRAIN_GB * TRAIN_SEQ * 4 // topo.world // 1024} KiB; dp {topo.dp}, cp {topo.cp}) "
+            f"written in {time.monotonic() - t0:.2f} s to "
+            + ("a MemoryObjectStore with LatencyModel() (S3-class)" if backend == "tgb"
+               else "a KafkaSimBroker with BrokerConfig() (one message a TGB)"))
+
+    def fan_in(backend):
+        opts = {"prefetch_depth": 4} if backend == "tgb" else {}
+        return ReaderFanInSource([sessions[backend].reader(dp_rank=d, cp_rank=c, **opts)
+                                  for d in range(topo.dp) for c in range(topo.cp)], topo)
 
     params = init_params(param_specs(cfg), seed=SEED, device="cuda")
     opt = init_opt_state(params)
+    saved = [t.clone() for t in state_leaves(params, opt)]
     step = make_train_step(cfg, OptimizerConfig(**TRAIN_OPT), StepConfig(microbatches=1))
     want = expected_train_launches(cfg)
     per_step, device_tokens = [], []
@@ -981,22 +1096,19 @@ def phase_fused(torch, kcommon, cfg, phase6_ms):
         per_step.append({k: kcommon.launches[k] - before[k] for k in before})
         return out
 
-    def drive(depth, steps, restore_to, swap=False, profile_last=False):
-        """One loop run from the cursors ``restore_to``, ``steps`` a tuple of
-        ``run`` lengths (the last under torch.profiler if ``profile_last``);
-        returns (grids, mismatches, reports, loop, source)."""
+    def drive(src, depth, steps, want_grid, profile_last=False):
+        """One loop run over ``src``, ``steps`` a tuple of ``run`` lengths
+        (the last under torch.profiler if ``profile_last``); ``want_grid(i)``
+        is the grid step i must consume. Returns (grids, mismatches,
+        reports, loop)."""
         nonlocal params, opt
-        fan_in.restore(restore_to)
-        src = GridSource(fan_in, swap_dp_halves=swap)
         grids, mismatches, reports = [], [], []
         device_tokens.clear()
         per_step.clear()
 
         def on_batch(i, host):
             grids.append(host.copy())
-            # the grid the host packer makes from the stream, without the store
-            want_grid = host_grids[restore_to[0].step + i]
-            if host.dtype != np.int32 or not np.array_equal(host, want_grid):
+            if host.dtype != np.int32 or not np.array_equal(host, want_grid(i)):
                 mismatches.append(f"grid {i}: not the host packer's")
 
         loop = FusedTrainLoop(src, checked_step, params, opt, topology=topo,
@@ -1004,7 +1116,7 @@ def phase_fused(torch, kcommon, cfg, phase6_ms):
         with loop:
             for k, n_steps in enumerate(steps):
                 if profile_last and k == len(steps) - 1:
-                    device_profile(torch, f"fused depth {depth}, {n_steps} steps",
+                    device_profile(torch, f"fused tgb depth {depth}, {n_steps} steps",
                                    lambda: reports.append(loop.run(n_steps, on_batch=on_batch)))
                 else:
                     reports.append(loop.run(n_steps, on_batch=on_batch))
@@ -1020,70 +1132,130 @@ def phase_fused(torch, kcommon, cfg, phase6_ms):
             for t in r.timings:
                 if not np.isfinite(t.loss):
                     mismatches.append(f"step {t.step}: loss {t.loss}")
-        return grids, mismatches, reports, loop, src
+        return grids, mismatches, reports, loop
 
-    roofline_s = 6 * cfg.param_count() * TRAIN_GB * TRAIN_SEQ / BF16_TENSOR_FLOPS
+    roofline_s = ideal_step_s(cfg.param_count(), TRAIN_GB * TRAIN_SEQ)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     kcommon.reset_launches()
     arms = {}
-    for depth in (0, 2):
-        # depth 2 then runs FUSED_PROFILED more steps under the profiler
-        grids, bad, reports, loop, src = drive(
-            depth, (FUSED_WARMUP, FUSED_TIMED) + ((FUSED_PROFILED,) if depth else ()),
-            start, profile_last=depth > 0)
-        if bad:
-            raise AssertionError(f"fused depth {depth}: {bad}")
-        rep = reports[1]
-        arms[depth] = (grids, rep, loop, src)
-        per = rep.attribution(roofline_step_s=roofline_s)
-        fr = rep.stall_fractions()
-        log(f"fused depth {depth}: {rep.steps} timed steps after {FUSED_WARMUP} warm-up, "
-            f"{rep.tokens_per_s:.1f} tokens/s; split data_wait {fr['data_wait']:.4f} "
-            f"h2d {fr['h2d']:.4f} compute {fr['compute']:.4f} other {fr['other']:.4f}; "
-            f"per step ms {[round(t.wall_s * 1e3, 2) for t in rep.timings]}; compute ms "
-            f"{[round(t.compute_s * 1e3, 2) for t in rep.timings]} (phase 6's step ms "
-            f"{[round(ms, 2) for ms in phase6_ms]}); data_wait ms "
-            f"{[round(t.data_wait_s * 1e3, 2) for t in rep.timings]}; h2d ms "
-            f"{[round(t.h2d_s * 1e3, 3) for t in rep.timings]}; losses "
-            f"{[round(x, 5) for x in rep.losses]}")
-        log(f"fused depth {depth} attribution (roofline {roofline_s * 1e3:.2f} ms = "
-            f"6 x {cfg.param_count() / 1e9:.3f} B params x {TRAIN_GB * TRAIN_SEQ} tokens / "
-            f"{BF16_TENSOR_FLOPS:.3g} FLOP/s): "
-            + json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
-                          for k, v in per.items() if k != "per_step"})
-            + " per_step " + json.dumps({k: round(v * 1e3, 3)
-                                         for k, v in per["per_step"].items()}) + " ms")
+    # depth-major, as fig17: the gate compares backends at equal depth, and
+    # running those arms back to back keeps drift out of the comparison
+    for depth in FIG17_DEPTHS:
+        for backend in FIG17_BACKENDS:
+            restore_state(torch, params, opt, saved)
+            t_arm = time.monotonic()
+            writer = None
+            if backend == "colocated":
+                src, writer, pulled, grid_of = colocated_source(np, topo, cfg.vocab_size)
+                want_grid = lambda i, pulled=pulled, grid_of=grid_of: grid_of(pulled[i])  # noqa: E731
+            else:
+                src = GridSource(fan_in(backend))
+                want_grid = host_grids.__getitem__
+            profile = backend == "tgb" and depth > 0
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                grids, bad, reports, loop = drive(
+                    src, depth, (FUSED_WARMUP, FUSED_TIMED) + ((FUSED_PROFILED,) if profile else ()),
+                    want_grid, profile_last=profile)
+            finally:
+                if writer is not None:
+                    writer.__exit__(None, None, None)
+            peak = torch.cuda.max_memory_allocated()
+            if bad:
+                raise AssertionError(f"fused {backend} depth {depth}: {bad}")
+            rep = reports[1]
+            med = statistics.median(t.wall_s for t in rep.timings)
+            attr = rep.attribution(roofline_step_s=roofline_s)
+            amp = ([r.stats.read_amplification for r in src.inner.readers]
+                   if backend == "mq" else None)
+            arms[(backend, depth)] = dict(
+                grids=grids, loop=loop, src=src, rep=rep, tokens_per_s=TRAIN_GB * TRAIN_SEQ / med,
+                losses=[t.loss for r in reports[:2] for t in r.timings], attr=attr)
+            fr = rep.stall_fractions()
+            log(f"fused {backend} depth {depth}: {rep.steps} timed steps after {FUSED_WARMUP} "
+                f"warm-up: {TRAIN_GB * TRAIN_SEQ / med:.1f} tokens/s at the median step "
+                f"({med * 1e3:.2f} ms; fig17's reading), {rep.tokens_per_s:.1f} over the run; split "
+                f"data_wait {fr['data_wait']:.4f} h2d {fr['h2d']:.4f} compute {fr['compute']:.4f} "
+                f"other {fr['other']:.4f}; compute_vs_roofline {attr['compute_vs_roofline']:.3f}; "
+                f"K2 / K1 launches a step {per_step[0]['rmsnorm']} / "
+                f"{per_step[0]['flash_attention']}"
+                + (f"; read amplification {[round(a, 4) for a in amp]} (D x C = {topo.world})"
+                   if amp else "")
+                + f"; max_memory_allocated {peak / 2**30:.2f} GiB; arm {time.monotonic() - t_arm:.1f} s")
+            log(f"    per step ms {[round(t.wall_s * 1e3, 2) for t in rep.timings]}; compute ms "
+                f"{[round(t.compute_s * 1e3, 2) for t in rep.timings]} (phase 6's step ms "
+                f"{[round(ms, 2) for ms in phase6_ms]}); data_wait ms "
+                f"{[round(t.data_wait_s * 1e3, 2) for t in rep.timings]}; h2d ms "
+                f"{[round(t.h2d_s * 1e3, 3) for t in rep.timings]}; losses "
+                f"{[round(x, 5) for x in rep.losses]}")
+            if amp is not None and not all(a > topo.world for a in amp):
+                raise AssertionError(f"fused mq: read amplification {amp}, want > D x C "
+                                     f"= {topo.world} (whole-message fetch)")
+    log(f"fused: roofline {roofline_s * 1e3:.2f} ms a step = 6 x {cfg.param_count() / 1e9:.3f} "
+        f"B params x {TRAIN_GB * TRAIN_SEQ} tokens / {PEAK_FLOPS:.3g} FLOP/s "
+        f"(launch/roofline.ideal_step_s)  [{smi}]")
+
+    # the mq and tgb arms read the same grids, so from one state they train
+    # to the same bits; the colocated arm reads the pool's own order
+    for depth in FIG17_DEPTHS:
+        a, b = arms[("mq", depth)], arms[("tgb", depth)]
+        if a["losses"] != b["losses"]:
+            raise AssertionError(f"fused depth {depth}: mq losses {a['losses']} are not "
+                                 f"tgb's {b['losses']}")
+    log(f"fused: the mq and tgb arms' {FUSED_WARMUP + FUSED_TIMED} losses are bit-identical "
+        f"at each depth (depth 0 {arms[('tgb', 0)]['losses'][:3]} ...)")
+
+    # benchmarks/check_fig17.py's gates
+    tps = {k: v["tokens_per_s"] for k, v in arms.items()}
+    wait = {k: v["attr"]["data_wait"] for k, v in arms.items()}
+    ratios = [v["attr"]["compute_vs_roofline"] for v in arms.values()]
+    gates = [
+        (f"tgb d2 data_wait {wait[('tgb', 2)]:.4f} < {FIG17_MAX_DATA_WAIT}",
+         wait[("tgb", 2)] < FIG17_MAX_DATA_WAIT),
+        (f"tgb d2 {tps[('tgb', 2)]:.1f} tokens/s >= {FIG17_VS_COLOCATED} x colocated d2 "
+         f"{tps[('colocated', 2)]:.1f}", tps[("tgb", 2)] >= FIG17_VS_COLOCATED * tps[("colocated", 2)]),
+        (f"tgb d2 {tps[('tgb', 2)]:.1f} tokens/s >= {FIG17_VS_DEPTH0} x tgb d0 "
+         f"{tps[('tgb', 0)]:.1f}", tps[("tgb", 2)] >= FIG17_VS_DEPTH0 * tps[("tgb", 0)]),
+        (f"tgb d0 data_wait {wait[('tgb', 0)]:.4f} >= d2's + {FIG17_WAIT_DROP}",
+         wait[("tgb", 0)] >= wait[("tgb", 2)] + FIG17_WAIT_DROP),
+        (f"compute_vs_roofline {min(ratios):.3f}..{max(ratios):.3f} within "
+         f"{FIG17_ROOFLINE_SPREAD}x", max(ratios) <= FIG17_ROOFLINE_SPREAD * min(ratios)),
+    ]
+    log("fused: check_fig17's gates: " + "; ".join(
+        f"{text}: {'pass' if ok else 'FAIL'}" for text, ok in gates))
+    if not all(ok for _, ok in gates):
+        raise AssertionError("fused: check_fig17's gates failed")
+
     # the ring ran ahead; stop() rewound every reader to the consumed frontier
-    grids2, _, loop2, src2 = arms[2]
-    steps_at = [ck.step for ck in fan_in.cursors()]
-    if steps_at != [loop2.consumed] * len(readers):
+    tgb2 = arms[("tgb", 2)]
+    steps_at = [ck.step for ck in tgb2["src"].cursors()]
+    if steps_at != [tgb2["loop"].consumed] * topo.world:
         raise AssertionError(f"fused: reader cursors {steps_at} after stop(), "
-                             f"want {loop2.consumed} each")
-    if [g.tobytes() for g in arms[0][0]] != [g.tobytes() for g in grids2[:len(arms[0][0])]]:
-        raise AssertionError("fused: the depth-0 and depth-2 arms consumed different grids")
+                             f"want {tgb2['loop'].consumed} each")
     # replay from the snapshot taken before step 2's fetch
-    replay, bad, _, _, _ = drive(2, (3,), src2.snapshots[2])
-    if bad or [g.tobytes() for g in replay] != [g.tobytes() for g in grids2[2:5]]:
-        raise AssertionError(f"fused replay from step 2: {bad}; byte-identical to steps "
-                             f"2-4: {[g.tobytes() for g in replay] == [g.tobytes() for g in grids2[2:5]]}")
+    src2 = tgb2["src"]
+    src2.inner.restore(src2.snapshots[2])
+    replay, bad, _, _ = drive(src2, 2, (3,), lambda i: host_grids[2 + i])
+    if bad or [g.tobytes() for g in replay] != [g.tobytes() for g in tgb2["grids"][2:5]]:
+        raise AssertionError(f"fused replay from step 2: {bad}")
     launches = dict(kcommon.launches)
-    peak = torch.cuda.max_memory_allocated()
-    n_steps = 2 * (FUSED_WARMUP + FUSED_TIMED) + FUSED_PROFILED + 3
+    n_steps = len(arms) * (FUSED_WARMUP + FUSED_TIMED) + FUSED_PROFILED + 3
     expect_all = {k: v * n_steps for k, v in want.items()}
     if launches != expect_all:
         raise AssertionError(f"fused: launches {launches} over {n_steps} steps, "
                              f"want {expect_all}")
     log(f"fused: replay of steps 2-4 from a cursor snapshot byte-identical; reader cursors "
         f"at the consumed frontier {steps_at}; launches over {n_steps} steps {launches} "
-        f"({want} a step); max_memory_allocated {peak / 2**30:.2f} GiB")
+        f"({want} a step)")
 
     # negative control: the same checks refuse DP halves swapped
-    _, bad, _, _, _ = drive(2, (1,), start, swap=True)
+    _, bad, _, _ = drive(GridSource(fan_in("tgb"), swap_dp_halves=True), 2, (1,),
+                         host_grids.__getitem__)
     if not bad:
         raise AssertionError("fused control (DP halves swapped): the grid check passed it")
     log(f"  control fused (DP halves swapped): refused ({bad[0]})")
-    session.close()
+    for session in sessions.values():
+        session.close()
     return launches
 
 
@@ -1145,8 +1317,7 @@ def phase_resume(torch, kcommon, cfg, smi):
     t_phase = time.monotonic()
     say(f"host MemAvailable {mem_available_gib():.2f} GiB at the start")
     topo = Topology(dp=FUSED_DP, cp=FUSED_CP, global_batch=TRAIN_GB, seq_len=TRAIN_SEQ)
-    n = FUSED_BATCHES * TRAIN_GB * TRAIN_SEQ
-    stream = ((np.arange(n) * 7 + 3) % cfg.vocab_size).astype(np.int32)
+    stream = fused_stream(np, cfg)
     store = MemoryObjectStore(faults=FaultInjector())   # no latency model
     session = TrainSession(store, topo, namespace=RESUME_NS)
     with session.writer("w0") as w:
@@ -1330,6 +1501,274 @@ def phase_resume(torch, kcommon, cfg, smi):
     return launches
 
 
+def phase_failure(torch, kcommon, cfg, smi):
+    """Phase 11, failure isolation and a brownout with a live producer
+    thread, on the cut of phase 9 at depth 2: (a) the colocated pool dies
+    and the trainer stalls; (b) a tgb producer dies, a replacement recovers
+    from the manifest, and the trainer runs on exactly once; (c) the tgb arm
+    rides out fig16's SlowDown storm behind the resilient client with
+    grids and losses bit-identical to a fault-free run from the same state.
+    Returns the phase's launches."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core import (BatchTimeout, BrownoutPhase, FaultPolicy,
+                                  FaultyObjectStore, HedgePolicy, LatencyModel,
+                                  MemoryObjectStore, Namespace, ResilienceConfig,
+                                  run_producer_loop)
+    from repro_torch.data.packing import GlobalBatchPacker
+    from repro_torch.dataplane import Topology, open_dataplane
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.obs.recorder import latest_snapshot
+    from repro_torch.obs.registry import default_registry
+    from repro_torch.train import (OptimizerConfig, StepConfig, init_opt_state,
+                                   make_train_step)
+    from repro_torch.train.pipeline import FusedTrainLoop, ReaderFanInSource
+
+    def say(msg):
+        log(f"failure: {msg}  [{smi}]")
+
+    t_phase = time.monotonic()
+    topo = Topology(dp=FUSED_DP, cp=FUSED_CP, global_batch=TRAIN_GB, seq_len=TRAIN_SEQ)
+    stream = fused_stream(np, cfg)
+    host_grids = packer_grids(np, topo, stream)
+    slices = [b.slices for b in GlobalBatchPacker(TRAIN_GB, TRAIN_SEQ, topo.dp, topo.cp)
+              .add_tokens(stream)]
+    params = init_params(param_specs(cfg), seed=SEED, device="cuda")
+    opt = init_opt_state(params)
+    saved = [t.clone() for t in state_leaves(params, opt)]
+    step = make_train_step(cfg, OptimizerConfig(**TRAIN_OPT), StepConfig(microbatches=1))
+    want = expected_train_launches(cfg)
+    per_step = []
+
+    def counted_step(p, o, batch):
+        before = dict(kcommon.launches)
+        out = step(p, o, batch)
+        per_step.append({k: kcommon.launches[k] - before[k] for k in before})
+        return out
+
+    def fan_in(session):
+        return ReaderFanInSource([session.reader(dp_rank=d, cp_rank=c, prefetch_depth=4)
+                                  for d in range(topo.dp) for c in range(topo.cp)], topo)
+
+    def train(src, inject=None, timeout_s=60.0):
+        """The harness of every case: FAILURE_STEPS steps of a depth-2 loop
+        over ``src``, one ``run`` at a time, ``inject()`` after step
+        CRASH_AFTER_STEP. Returns (grids, step timings, the end time of
+        each step, the error that stopped the loop or None)."""
+        nonlocal params, opt
+        grids, timings, ends, err = [], [], [], None
+        loop = FusedTrainLoop(src, counted_step, params, opt, topology=topo, depth=2,
+                              timeout_s=timeout_s)
+        with loop:
+            for i in range(FAILURE_STEPS):
+                try:
+                    timings += loop.run(1, on_batch=lambda _, g: grids.append(g.copy())).timings
+                except BatchTimeout as e:
+                    err = e
+                    break
+                ends.append(time.monotonic())
+                if inject is not None and i + 1 == CRASH_AFTER_STEP:
+                    inject()
+        params, opt = loop.params, loop.opt_state
+        return grids, timings, ends, err
+
+    def isolation_faults(grids, want_grids, err):
+        """What breaks the isolation claim: an error, a missing step, a grid
+        that is not the host packer's (repeated, skipped or torn)."""
+        faults = [] if err is None else [f"{type(err).__name__}: {err}"]
+        if len(grids) < FAILURE_STEPS:
+            faults.append(f"{len(grids)} of {FAILURE_STEPS} steps ran")
+        faults += [f"grid {i} is not the packer's" for i, (g, w) in
+                   enumerate(zip(grids, want_grids)) if not np.array_equal(g, w)]
+        return faults
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kcommon.reset_launches()
+    t_case = [time.monotonic()]
+
+    def case_s():
+        """Seconds since the previous case ended (the first: since the state
+        was made)."""
+        now = time.monotonic()
+        dt, t_case[0] = now - t_case[0], now
+        return dt
+
+    say(f"state and its saved copy made in {t_case[0] - t_phase:.1f} s")
+
+    # -- (a) the colocated pool dies after step 3: the trainer stalls ----------------------
+    src, writer, pulled, grid_of = colocated_source(np, topo, cfg.vocab_size)
+    crash_at = []
+
+    def crash():
+        crash_at.append(time.monotonic())
+        writer.inject_crash()
+
+    try:
+        grids, timings, ends, err = train(src, inject=crash, timeout_s=CRASH_TIMEOUT_S)
+    finally:
+        writer.__exit__(None, None, None)
+    faults = isolation_faults(grids, [grid_of(ix) for ix in pulled], err)
+    stall = time.monotonic() - ends[-1] if ends else float("nan")
+    say(f"(a) colocated crash after step {CRASH_AFTER_STEP}: {len(grids)} steps ran "
+        f"({len(grids) - CRASH_AFTER_STEP} from the ring and queue after the crash), then "
+        f"{type(err).__name__} {stall:.2f} s after the last step (loop timeout "
+        f"{CRASH_TIMEOUT_S} s); the isolation check refuses it: {faults[:2]}; case "
+        f"{case_s():.1f} s")
+    if not isinstance(err, BatchTimeout) or not faults or \
+            not CRASH_TIMEOUT_S <= stall <= CRASH_TIMEOUT_S + 3.0:
+        raise AssertionError("failure (a): the colocated crash did not stall the trainer "
+                             "into a BatchTimeout within the loop's timeout")
+
+    # -- (b) a tgb producer dies after 5 TGBs; a replacement recovers ------------------------
+    session = open_dataplane(MemoryObjectStore(latency=LatencyModel()), topo,
+                             namespace="runs/kill")
+    events = {}
+
+    class Killed(Exception):
+        pass
+
+    def first_payload(offset):
+        if offset == KILL_AFTER_TGBS:
+            raise Killed()
+        return slices[offset]
+
+    def producers():
+        w1 = session.writer("w0").__enter__()
+        try:
+            run_producer_loop(w1.producer, FUSED_BATCHES, 0, produce_delay_s=PRODUCE_DELAY_S,
+                              payload_fn=first_payload)
+        except Killed:   # the thread dies; its writer is never finalized
+            events["kill"] = time.monotonic()
+            events["pending"] = len(w1.producer.pending)
+        time.sleep(RESTART_S)
+        w2 = session.writer("w0").__enter__()   # recover() from the manifest
+        events["recovered"] = (time.monotonic(), w2.recovered_offset)
+        run_producer_loop(w2.producer, FUSED_BATCHES - w2.recovered_offset, 0,
+                          produce_delay_s=PRODUCE_DELAY_S, payload_fn=slices.__getitem__)
+        events["done"] = time.monotonic()
+
+    t0 = time.monotonic()
+    thread = threading.Thread(target=producers, name="tgb-producers")
+    thread.start()
+    grids, timings, ends, err = train(fan_in(session))
+    thread.join(timeout=60.0)
+    faults = isolation_faults(grids, host_grids, err)
+    t_kill, (t_rec, recovered) = events.get("kill", float("nan")), events["recovered"]
+    near = [i for i, e in enumerate(ends) if e >= t_kill and e - timings[i].wall_s <= t_rec + 1.0]
+    view = session.manifest_view()
+    seqs = [t.producer_seq for t in view.tgbs]
+    say(f"(b) tgb producer killed before TGB {KILL_AFTER_TGBS} at {t_kill - t0:.2f} s "
+        f"({events.get('pending')} written but uncommitted); the replacement entered "
+        f"{t_rec - t_kill:.2f} s later and recovered offset {recovered}; the trainer ran "
+        f"{len(grids)} of {FAILURE_STEPS} steps, every grid the host packer's, once: "
+        f"{not faults}; manifest seqs {seqs}; data_wait ms by step "
+        f"{[round(t.data_wait_s * 1e3, 2) for t in timings]}, the steps around the kill "
+        f"{near} ({[round(timings[i].data_wait_s * 1e3, 2) for i in near]}); case "
+        f"{case_s():.1f} s")
+    session.close()
+    if faults or seqs != list(range(FUSED_BATCHES)) or thread.is_alive():
+        raise AssertionError(f"failure (b): the trainer did not run on exactly once past "
+                             f"the producer kill: {faults[:3]}; seqs {seqs}")
+
+    # -- (c) fig16's SlowDown storm over the middle third of the run -------------------------
+    def resilient_config(seed):
+        """benchmarks/fig16_brownout.py's ``_resilient_config``."""
+        return ResilienceConfig(
+            seed=seed, base_delay_s=0.005, backoff_cap_s=0.1,
+            retry_budgets={"read": (32.0, 8.0), "write": (32.0, 8.0),
+                           "control": (32.0, 8.0)},
+            hedge=HedgePolicy(quantile=0.9, min_samples=16, min_delay_s=0.002),
+            breaker_failure_threshold=10, breaker_cooldown_s=0.1,
+            governor_md_factor=0.8, governor_ai_per_s=10.0,
+            governor_min_rate=8.0, governor_idle_reset_s=0.5)
+
+    # the fault-free run from the saved state
+    restore_state(torch, params, opt, saved)
+    clean = open_dataplane(MemoryObjectStore(latency=LatencyModel()), topo, namespace="runs/clean")
+    with clean.writer("w0") as w:
+        w.write_tokens(stream)
+    t0 = time.monotonic()
+    ref_grids, ref_timings, _, err = train(fan_in(clean))
+    ref_wall = time.monotonic() - t0
+    clean.close()
+    if err is not None:
+        raise AssertionError(f"failure (c): the fault-free run failed: {err}")
+
+    # the same steps from the same state through the storm
+    restore_state(torch, params, opt, saved)
+    inner = MemoryObjectStore(latency=LatencyModel())
+    faulty = FaultyObjectStore(inner, FaultPolicy(seed=0, slow_get_rate=0.15, slow_get_s=0.06,
+                                                  key_filter="/tgb/"))
+    session = open_dataplane(faulty, topo, namespace="runs/brownout",
+                             resilience=resilient_config(0), obs_snap_interval_s=OBS_SNAP_S)
+    writer = session.writer("w0", spill_limit=256).__enter__()
+    for offset in range(BROWNOUT_WARMUP_TGBS):
+        writer.write(slices[offset])
+    writer.flush()
+    thread = threading.Thread(target=run_producer_loop, name="tgb-producer", kwargs=dict(
+        producer=writer.producer, n_tgbs=FUSED_BATCHES - BROWNOUT_WARMUP_TGBS, slice_bytes=0,
+        produce_delay_s=PRODUCE_DELAY_S, payload_fn=slices.__getitem__))
+    third = ref_wall / 3
+    t0 = faulty.script_brownout([BrownoutPhase(third, 2 * third, target_rate=120.0,
+                                               retry_after_s=0.1)])
+    thread.start()
+    grids, timings, ends, err = train(fan_in(session))
+    faulty.clear_brownout()
+    thread.join(timeout=60.0)
+    wall = time.monotonic() - t0
+    losses, ref_losses = [t.loss for t in timings], [t.loss for t in ref_timings]
+    same = (err is None and len(grids) == len(ref_grids)
+            and all(np.array_equal(a, b) for a, b in zip(grids, ref_grids)) and losses == ref_losses)
+    shares = []
+    for k in range(3):
+        idx = [i for i, e in enumerate(ends) if min(2, int((e - t0) // third)) == k]
+        w = sum(timings[i].wall_s for i in idx)
+        shares.append((len(idx), sum(timings[i].data_wait_s for i in idx) / w if w else 0.0))
+    rs = session.store.resilience
+    prod = writer.producer
+    scope = prod.stats.metric_scope
+    snap = latest_snapshot(Namespace(inner, "runs/brownout"), scope)
+    if snap is None or snap["metrics"] != default_registry().snapshot(scope + "."):
+        # the last word was shed by the storm (telemetry never retries
+        # inline): the recorder's next heartbeat, after the storm, lands it
+        prod._recorder.snap()
+        snap = latest_snapshot(Namespace(inner, "runs/brownout"), scope)
+    live = default_registry().snapshot(scope + ".")
+    say(f"(c) brownout: storm [{third:.2f}, {2 * third:.2f}) s of a {wall:.2f} s run (the "
+        f"fault-free run took {ref_wall:.2f} s); throttles seen {rs.throttled}, injected "
+        f"{faulty.fault_stats.counts.get('throttled', 0)}, slow GETs "
+        f"{faulty.fault_stats.counts.get('slow_get', 0)}; retries {rs.retries}, Retry-After "
+        f"paused {rs.throttle_pause_s:.2f} s, governor delay {rs.governor_delay_s:.2f} s, "
+        f"hedges fired {rs.hedges_fired} won {rs.hedges_won}, breaker opens "
+        f"{rs.breaker_opens}; producer spilled {prod.stats.tgbs_spilled}, replayed "
+        f"{prod.stats.spill_replayed}; data_wait share by third (steps, share) "
+        f"{[(n, round(x, 4)) for n, x in shares]}; grids and losses bit-identical to the "
+        f"fault-free run: {same}")
+    say(f"(c) flight recorder: {scope} published {prod._recorder.published}, dropped "
+        f"{prod._recorder.dropped}; latest snapshot seq {snap and snap['seq']} from "
+        f"runs/brownout/obs/ equals the live registry: {snap is not None and snap['metrics'] == live} "
+        f"(tgbs_written {live.get(scope + '.tgbs_written')}, commit_successes "
+        f"{live.get(scope + '.commit_successes')}); case {case_s():.1f} s")
+    session.close()
+    if not same or rs.throttled <= 0 or thread.is_alive() or snap is None \
+            or snap["metrics"] != live:
+        raise AssertionError(f"failure (c): bit-identical {same}, throttles seen "
+                             f"{rs.throttled}, snapshot equals the registry "
+                             f"{snap is not None and snap['metrics'] == live}")
+
+    launches = dict(kcommon.launches)
+    bad = [i for i, n in enumerate(per_step) if n != want]
+    say(f"launches over {len(per_step)} steps {launches}; a step {per_step[0]} (want {want}); "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    if bad:
+        raise AssertionError(f"failure: steps {bad} launched other than {want}")
+    return launches
+
+
 def phase_train_vs_plain(torch, label, cfg, control_name, control):
     """A 2-layer full-width cut: one train step's loss, gradients and grad
     norm, kernel path against plain path, and a negative control that must
@@ -1414,7 +1853,7 @@ def main() -> int:
                     help="comma-separated kernel names: build and check only "
                          "these (phases 1-3) and skip the serving phases")
     ap.add_argument("--skip-serving", action="store_true",
-                    help="run phases 1-3 and the training phases 6-10 only")
+                    help="run phases 1-3 and the training phases 6-11 only")
     args = ap.parse_args()
     import torch
 
@@ -1435,6 +1874,14 @@ def main() -> int:
         raise SystemExit(f"chip_smoke: unknown kernels {sorted(unknown)}; "
                          f"choose from {kcommon.KERNELS}")
 
+    t_mark = [time.monotonic()]
+
+    def done(phase):
+        """Log the wall time since the previous phase ended."""
+        now = time.monotonic()
+        log(f"phase {phase}: {now - t_mark[0]:.1f} s")
+        t_mark[0] = now
+
     # -- 1. device ------------------------------------------------------------------
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = nvidia_smi_line()
@@ -1452,11 +1899,13 @@ def main() -> int:
         for line in res["log"].splitlines():
             if "Used" in line or "spill" in line or "Compiling entry" in line:
                 log(f"    {line.strip()}")
+    done("1-2")
 
     # -- 3. kernels vs plain ------------------------------------------------------------
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     entries = phase_kernels(torch, F, flush, names)
     del flush
+    done(3)
     if args.kernels is not None:  # phases 1-3 only: no main-path launches
         log(smi)
         log(json.dumps({"kernels": [entries[k] for k in names]}))
@@ -1476,6 +1925,7 @@ def main() -> int:
         phase_kernel_vs_plain(torch, "granite-8b", engine.cfg, engine.params)
         del engine
         free()
+        done(4)
 
         # -- 5. rwkv6-3b at full width, its profile and its 2-layer cut -------------------
         cfg, params, paths["rwkv6-3b"] = phase_serve_rwkv(torch, kcommon)
@@ -1483,17 +1933,20 @@ def main() -> int:
         phase_kernel_vs_plain(torch, "rwkv6-3b", cfg, params)
         del cfg, params
         free()
+        done(5)
 
     # -- 6. granite-8b training, full width, 8 of 36 layers --------------------------------
     granite, rwkv = get_config("granite_8b"), get_config("rwkv6_3b")
     paths["granite-8b train"], granite_ms = phase_train(
         torch, kcommon, "granite-8b", granite.replace(num_layers=GRANITE_TRAIN_LAYERS))
     free()
+    done(6)
 
     # -- 7. rwkv6-3b training, full width and depth ----------------------------------------
     paths["rwkv6-3b train"], _ = phase_train(
         torch, kcommon, "rwkv6-3b", rwkv.replace(num_layers=RWKV_TRAIN_LAYERS))
     free()
+    done(7)
 
     # -- 8. one train step of each 2-layer cut, kernels vs plain, with a control ------------
     phase_train_vs_plain(torch, "granite-8b", granite, "K1 backward without the causal mask",
@@ -1502,16 +1955,23 @@ def main() -> int:
     phase_train_vs_plain(torch, "rwkv6-3b", rwkv, "K4 backward on time-reversed inputs",
                          control_k4_time_reversed)
     free()
+    done(8)
 
-    # -- 9. the granite-8b cut of phase 6, trained off the tgb data plane ------------------
-    paths["granite-8b fused"] = phase_fused(
-        torch, kcommon, granite.replace(num_layers=GRANITE_TRAIN_LAYERS), granite_ms)
+    # -- 9. fig17's three arms: the granite-8b cut of phase 6 off each data plane ----------
+    cut = granite.replace(num_layers=GRANITE_TRAIN_LAYERS)
+    paths["granite-8b fused"] = phase_fused(torch, kcommon, cut, granite_ms, smi)
     free()
+    done(9)
 
     # -- 10. the same cut through a TrainSession: aligned checkpoint, kill, resume ---------
-    paths["granite-8b resume"] = phase_resume(
-        torch, kcommon, granite.replace(num_layers=GRANITE_TRAIN_LAYERS), smi)
+    paths["granite-8b resume"] = phase_resume(torch, kcommon, cut, smi)
     free()
+    done(10)
+
+    # -- 11. failure isolation and a brownout, with a live producer thread -----------------
+    paths["granite-8b failure"] = phase_failure(torch, kcommon, cut, smi)
+    free()
+    done(11)
 
     # launches: each kernel's count on the serving path it was ported for
     # (granite-8b for K1-K3, rwkv6-3b for K4; their training paths with

@@ -3,9 +3,10 @@
 Only the modules the tgb path runs are copied, each verbatim but for its
 imports: object stores, TGBs, manifests and the commit protocol, DAC, the
 producer and consumer clients, lifecycle (watermarks, reclamation, the trim
-marker) and fault injection. ``_msgpack`` stands in for the msgpack package
-(byte-identical output). The reference's resilience layer and compactor
-wait (ROADMAP Queue 1, items 2c and 2e).
+marker), fault injection and the resilience layer (``ResilientStore``:
+backoff + retry budgets, AIMD throttle governor, hedged reads, circuit
+breaker). ``_msgpack`` stands in for the msgpack package (byte-identical
+output). The reference's compactor waits (ROADMAP Queue 1, item 2e).
 """
 from repro_torch.core.clock import Clock, SystemClock, VirtualClock
 from repro_torch.core.commit import (CommitProtocol, CommitResult,
@@ -35,7 +36,13 @@ from repro_torch.core.objectstore import (ConditionalPutFailed,
                                           LatencyModel, MemoryObjectStore,
                                           Namespace, NoSuchKey, ObjectStore,
                                           ZERO_LATENCY)
-from repro_torch.core.producer import Producer, ProducerStats
+from repro_torch.core.producer import (Producer, ProducerStats,
+                                       run_producer_loop)
+from repro_torch.core.resilience import (AIMDGovernor, CircuitBreaker,
+                                         HedgePolicy, ResilienceConfig,
+                                         ResilientStore, RetryBudget,
+                                         StoreResilienceStats,
+                                         shared_governor, wrap_store)
 from repro_torch.core.stats import LatencyWindow, percentile, percentiles
 from repro_torch.core.tgb import (TGBBuilder, TGBDescriptor, TGBFooter,
                                   TGBReader)
@@ -62,6 +69,9 @@ __all__ = [
     "MemoryObjectStore", "Namespace", "NoSuchKey", "ObjectStore",
     "ZERO_LATENCY",
     "LatencyWindow", "percentile", "percentiles",
-    "Producer", "ProducerStats",
+    "Producer", "ProducerStats", "run_producer_loop",
+    "AIMDGovernor", "CircuitBreaker", "HedgePolicy", "ResilienceConfig",
+    "ResilientStore", "RetryBudget", "StoreResilienceStats",
+    "shared_governor", "wrap_store",
     "TGBBuilder", "TGBDescriptor", "TGBFooter", "TGBReader",
 ]

@@ -200,11 +200,13 @@ class Consumer:
         self.stats = ConsumerStats(
             stats_instance or f"d{pos.dp_rank}c{pos.cp_rank}")
         self._stats_lock = threading.Lock()
+        # optional flight recorder: this rank's counters become readable from
+        # storage (lag/throughput diagnosis without touching the process)
+        self._recorder = None
         if obs_snap_interval_s is not None:
-            from repro_torch.dataplane.types import UnsupportedOperation
-            raise UnsupportedOperation(
-                "flight-recorder snapshots (obs_snap_interval_s) are not "
-                "ported yet: ROADMAP Queue 1, item 2e")
+            from repro_torch.obs.recorder import FlightRecorder
+            self._recorder = FlightRecorder(ns, self.stats.metric_scope,
+                                            interval_s=obs_snap_interval_s)
         self._footers: Dict[str, Tuple[TGBFooter, int]] = {}  # key -> (footer, size)
         self._footer_lock = threading.Lock()
         self.prefetch_depth = prefetch_depth
@@ -382,6 +384,8 @@ class Consumer:
         self.stats.bytes_consumed += len(data)
         self.stats.read_latencies.append(self.clock.now() - t0)
         self.step += 1
+        if self._recorder is not None:
+            self._recorder.maybe_snap()
         return data
 
     def _outage_wait_fetch(self, key3: Tuple[int, int, int], t0: float,

@@ -127,7 +127,7 @@ def retry_transient(fn, clock, attempts: int = 4, base_delay_s: float = 0.01,
         long instead of the backoff draw (the store told us when to return);
       * fail-fast errors (``CircuitOpenError``, ``RetryBudgetExhausted``)
         re-raise immediately — no sleep, no extra attempts;
-      * an optional ``budget`` (``repro.core.resilience.RetryBudget``) is
+      * an optional ``budget`` (``repro_torch.core.resilience.RetryBudget``) is
         charged one token per re-attempt; when it runs dry the retry stops
         early with ``RetryBudgetExhausted`` chained to the last failure.
 

@@ -92,6 +92,7 @@ class ReclaimStats(StatsView):
         "tgbs_deleted": COUNTER,
         "bytes_reclaimed": COUNTER,
         "cycles": COUNTER,
+        "obs_snaps_deleted": COUNTER,  # flight-recorder snapshots pruned
     }
 
 
@@ -116,6 +117,7 @@ class Reclaimer:
                  manifests: Optional[ManifestStore] = None,
                  watermark_source: Optional[
                      Callable[[], Optional[Watermark]]] = None,
+                 obs_keep_snaps: int = 8,
                  shard_runway_windows: int = 4):
         self.ns = ns
         self.store = ns.store
@@ -134,6 +136,9 @@ class Reclaimer:
         # rather than decoding incrementally — pick the window count by how
         # long readers may realistically pause versus per-shard commit rate
         self.shard_runway_windows = max(1, shard_runway_windows)
+        # telemetry retention rides the data lifecycle: each cycle keeps the
+        # newest N flight-recorder snapshots per component (0 = keep all)
+        self.obs_keep_snaps = obs_keep_snaps
         self.stats = ReclaimStats()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -164,6 +169,14 @@ class Reclaimer:
             self._write_trim(safe_step, safe_version)  # logical trim signal
         if not self.physical_delete:
             return wg
+        # -- telemetry retention: prune old flight-recorder snapshots ------------
+        if self.obs_keep_snaps > 0:
+            # late import: repro_torch.obs.recorder is reachable from core
+            # client modules that import lifecycle during repro_torch.core
+            # initialization
+            from repro_torch.obs.recorder import prune_snaps
+            self.stats.obs_snaps_deleted += prune_snaps(
+                self.ns, keep=self.obs_keep_snaps)
         # -- physical deletion: TGB objects below the safe step ------------------
         latest = self.manifests.latest_version()
         if latest < 0:

@@ -18,7 +18,7 @@ import threading
 import uuid
 from collections import deque
 from concurrent.futures import Future
-from typing import Deque, List, Optional, Tuple
+from typing import Callable, Deque, List, Optional, Tuple
 
 from repro_torch.core.commit import CommitProtocol, ShardedCommitProtocol
 from repro_torch.core.dac import CommitPolicy, DACPolicy
@@ -102,11 +102,15 @@ class Producer:
                                            epoch=epoch)
         self.max_lag = max_lag
         self.stats = ProducerStats(producer_id)
+        # optional flight recorder: periodic registry snapshots published to
+        # <ns>/obs/<scope>/ so operators can read this producer's counters
+        # from storage alone (including post-mortem). Never on the data path:
+        # snap errors are swallowed and counted by the recorder itself.
+        self._recorder = None
         if obs_snap_interval_s is not None:
-            from repro_torch.dataplane.types import UnsupportedOperation
-            raise UnsupportedOperation(
-                "flight-recorder snapshots (obs_snap_interval_s) are not "
-                "ported yet: ROADMAP Queue 1, item 2e")
+            from repro_torch.obs.recorder import FlightRecorder
+            self._recorder = FlightRecorder(ns, self.stats.metric_scope,
+                                            interval_s=obs_snap_interval_s)
         # stream offset of the next TGB this producer will create
         self.next_offset = 0
         # TGBs written to the store but not yet visible in a committed manifest
@@ -276,6 +280,8 @@ class Producer:
         """Attempt a commit if the policy's cadence allows. Returns True iff a
         commit attempt completed successfully during this call (in pipelined
         mode a freshly scheduled attempt reports on a later call)."""
+        if self._recorder is not None:
+            self._recorder.maybe_snap()
         if self._spill:
             self._try_replay_spill()
         try:
@@ -370,6 +376,8 @@ class Producer:
                 self.protocol.flush_frontier()
             except TransientStoreError:
                 pass  # consumers catch up on the next heartbeat/compaction
+        if self._recorder is not None:
+            self._recorder.close()  # last-word snapshot for post-mortems
 
     # ------------------------------------------------------------------
     def lag_exceeded(self) -> bool:
@@ -393,3 +401,35 @@ class Producer:
         ahead = (steps + len(self.pending)) - self._last_safe_step
         return ahead >= self.max_lag
 
+
+def run_producer_loop(producer: Producer, n_tgbs: int,
+                      slice_bytes: int,
+                      stop: Optional[threading.Event] = None,
+                      produce_delay_s: float = 0.0,
+                      payload_fn: Optional[Callable[[int], dict]] = None,
+                      deadline_s: Optional[float] = None) -> ProducerStats:
+    """Drive a producer for ``n_tgbs`` TGBs (benchmark/ingest helper thread body)."""
+    clock = producer.clock
+    t_start = clock.now()
+    produced = 0
+    while produced < n_tgbs:
+        if stop is not None and stop.is_set():
+            break
+        if deadline_s is not None and clock.now() - t_start > deadline_s:
+            break
+        if producer.lag_exceeded() or producer.spill_full:
+            t0 = clock.now()
+            clock.sleep(0.05)
+            producer.stats.throttled_time += clock.now() - t0
+            producer.maybe_commit()  # also replays spilled TGBs when possible
+            continue
+        if produce_delay_s:
+            clock.sleep(produce_delay_s)
+        if payload_fn is not None:
+            producer.write_tgb(slice_payloads=payload_fn(producer.next_offset))
+        else:
+            producer.write_tgb(uniform_slice_bytes=slice_bytes)
+        produced += 1
+        producer.maybe_commit()
+    producer.finalize()
+    return producer.stats

@@ -1,7 +1,7 @@
 """Backend registry: new transports plug in without touching call sites.
 
 A backend is a factory ``(target, topology, *, namespace, resume, **opts) ->
-DataPlaneSession``. The port's one built-in (tgb) self-registers on
+DataPlaneSession``. The three built-ins (tgb, mq, colocated) self-register on
 package import; external code can add its own via ``register_backend`` and
 callers reach it by name through ``open_dataplane(..., backend="mybackend")``.
 """

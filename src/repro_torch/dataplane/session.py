@@ -1,8 +1,7 @@
 """``open_dataplane`` — the single entry point to every data-plane backend.
 
-The port registers the ``tgb`` backend only; the mq and colocated baselines
-(``repro/dataplane/{mq,colocated}_backend.py``) and multi-stream sessions
-are refused with ``UnsupportedOperation`` until they are ported.
+Multi-stream sessions (``repro/streams/``) are refused with
+``UnsupportedOperation`` until they are ported.
 """
 from __future__ import annotations
 
@@ -11,9 +10,6 @@ from typing import Mapping, Optional
 from repro_torch.dataplane.registry import backend_factory
 from repro_torch.dataplane.types import (Checkpoint, DataPlaneSession,
                                          Topology, UnsupportedOperation)
-
-#: the reference's other built-in backends, refused by name until ported
-_NOT_PORTED = ("mq", "colocated")
 
 
 def open_dataplane(target, topology: Topology, backend: str = "tgb", *,
@@ -25,8 +21,10 @@ def open_dataplane(target, topology: Topology, backend: str = "tgb", *,
     """Open a data-plane session over an interchangeable backend.
 
     Args:
-      target: the transport substrate — an ``ObjectStore`` for ``tgb``.
-        Custom backends define their own target type.
+      target: the transport substrate — an ``ObjectStore`` for ``tgb``, a
+        ``KafkaSimBroker`` (or None to build one) for ``mq``, a
+        ``ColocatedPipeline``/Clock/None for ``colocated``. Custom backends
+        define their own target type.
       topology: the consuming mesh's ``Topology`` (DP x CP, optionally the
         global-batch token grid so readers decode arrays).
       backend: registered backend name (see ``available_backends()``).
@@ -48,8 +46,7 @@ def open_dataplane(target, topology: Topology, backend: str = "tgb", *,
       ValueError: ``resume`` token was captured on a different backend
         (cursors are not portable across transports) or is malformed, or
         ``backend`` is not a registered backend name.
-      UnsupportedOperation: ``streams`` given, or ``backend`` is one of the
-        reference's backends the port does not have yet (mq, colocated).
+      UnsupportedOperation: ``streams`` given (not ported yet).
 
     Example::
 
@@ -70,10 +67,6 @@ def open_dataplane(target, topology: Topology, backend: str = "tgb", *,
     if not isinstance(topology, Topology):
         raise TypeError(f"topology must be a dataplane Topology, got "
                         f"{type(topology).__name__}")
-    if backend in _NOT_PORTED:
-        raise UnsupportedOperation(
-            f"the {backend!r} backend is not ported yet (only 'tgb' is): "
-            f"ROADMAP Queue 1, item 2c")
     ckpt = Checkpoint.coerce(resume)
     if ckpt is not None and ckpt.backend != backend:
         raise ValueError(

@@ -25,6 +25,7 @@ from repro_torch.core.lifecycle import Reclaimer, Watermark, write_watermark
 from repro_torch.core.manifest import ManifestStore, open_manifest_store
 from repro_torch.core.objectstore import IOPool, Namespace, ObjectStore
 from repro_torch.core.producer import Producer
+from repro_torch.core.resilience import wrap_store
 from repro_torch.dataplane._base import PackingWriterMixin, SessionBase
 from repro_torch.dataplane.types import (Batch, Checkpoint, Topology,
                                          UnsupportedOperation)
@@ -210,12 +211,13 @@ class TGBSession(SessionBase):
         if not isinstance(store, ObjectStore):
             raise TypeError(f"tgb backend needs an ObjectStore target, got "
                             f"{type(store).__name__}")
-        # the resilience layer (core/resilience.py) is not ported: None is
-        # the reference's no-op, anything else is refused
-        if resilience is not None:
-            raise UnsupportedOperation(
-                "resilience= (core/resilience.py's ResilientStore) is not "
-                "ported yet: ROADMAP Queue 1, item 2e")
+        # resilience=True / ResilienceConfig: every client this session vends
+        # talks to the store through one shared ResilientStore (backoff +
+        # retry budgets, throttle governor, hedged reads, circuit breaker)
+        store = wrap_store(store, resilience)
+        if resilience and obs_snap_interval_s is not None:
+            store.attach_recorder(Namespace(store, namespace),
+                                  obs_snap_interval_s)
         self.store = store
         self.topology = topology
         # the layout producers materialize TGBs at; defaults to the consuming

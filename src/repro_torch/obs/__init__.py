@@ -1,5 +1,6 @@
-"""Observability (port of ``repro.obs``): the metrics registry and the span
-tracer. The flight recorder waits (ROADMAP Queue 1, item 2e).
+"""Observability (port of ``repro.obs``): the metrics registry, the span
+tracer and the flight recorder (``FlightRecorder`` publishing per-component
+registry snapshots to ``<run>/obs/<component>/<seq>.snap``).
 
 ``repro_torch.core`` is loaded first: its clients import
 ``repro_torch.obs.registry``, which imports ``repro_torch.core.stats``, so
@@ -8,6 +9,9 @@ the registry loads (as in the reference, whose ``obs`` package reaches
 ``repro.core`` through the recorder first).
 """
 import repro_torch.core  # noqa: F401  (import order; see above)
+from repro_torch.obs.recorder import (FlightRecorder, OBS_DIR, SNAP_SCHEMA,
+                                      component_dirs, latest_snapshot,
+                                      list_snaps, prune_snaps, read_snapshots)
 from repro_torch.obs.registry import (COUNTER, GAUGE, HISTOGRAM, Counter,
                                       Gauge, Histogram, Metric,
                                       MetricsRegistry, StatsView,
@@ -20,4 +24,6 @@ __all__ = [
     "Metric", "MetricsRegistry", "StatsView", "default_registry",
     "set_default_registry", "Span", "TRACER", "Tracer", "disable_tracing",
     "enable_tracing", "trace_span",
+    "FlightRecorder", "OBS_DIR", "SNAP_SCHEMA", "component_dirs",
+    "latest_snapshot", "list_snaps", "prune_snaps", "read_snapshots",
 ]

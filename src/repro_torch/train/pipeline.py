@@ -345,8 +345,7 @@ class FusedReport:
                     ) -> Dict[str, object]:
         """Where did the time go, and whose fault is a regression?
 
-        With ``roofline_step_s`` (the card's ideal step: the roofline port,
-        ``launch/roofline.py``, is ROADMAP Queue 1 item 7) the
+        With ``roofline_step_s`` (see ``launch.roofline.ideal_step_s``) the
         report carries ``compute_vs_roofline`` — measured compute per step
         over the roofline ideal (1/MFU-shaped). Rising compute_vs_roofline
         at flat data_wait is a kernel problem; rising data_wait at flat

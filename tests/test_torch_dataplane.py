@@ -4,7 +4,10 @@ A store written by either package reads back identically in the other:
 every (d, c) reader yields the same ``Batch`` fields (step, tokens) and the
 same Checkpoint tokens, and a token minted by one package restores a reader
 of the other. The facade's adversarial probes raise the same typed errors as
-in ``repro``.
+in ``repro``. The mq and colocated baselines open and match the reference,
+and the ``resilience=`` and ``obs_snap_interval_s=`` options write what the
+reference reads back (the baselines' own twins are in
+``tests/test_torch_baselines.py``).
 
 Each package's session refuses a store that is not its own
 ``ObjectStore``, so "one store" is two ``MemoryObjectStore`` objects, one of
@@ -18,8 +21,10 @@ pytest.importorskip("jax")
 pytest.importorskip("msgpack")
 
 import repro.core as jcore  # noqa: E402
+import repro.data as jdata  # noqa: E402
 import repro.dataplane as jdp  # noqa: E402
 import repro_torch.core as tcore  # noqa: E402
+import repro_torch.data as tdata  # noqa: E402
 import repro_torch.dataplane as tdp  # noqa: E402
 
 TOPO_ARGS = dict(dp=2, cp=2, global_batch=4, seq_len=16)
@@ -158,29 +163,87 @@ def test_facade_probes_raise_the_reference_errors(probe):
 
 
 @pytest.mark.parametrize("backend", ["mq", "colocated"])
-def test_unported_backends_are_refused_by_name(backend):
-    with pytest.raises(tdp.UnsupportedOperation, match="ROADMAP"):
-        tdp.open_dataplane(tcore.MemoryObjectStore(),
-                           tdp.Topology(**TOPO_ARGS), backend=backend)
-    assert tdp.available_backends() == ("tgb",)
+def test_baseline_backends_open_and_match_the_reference(backend):
+    """Both packages register the reference's three backends, and a
+    baseline session of each gives the same batches and tokens (one
+    colocated worker, so its indices come in order)."""
+    # other tests in a worker may register more (``echo``); the built-ins
+    # are the reference's three
+    built_in = {"colocated", "mq", "tgb"}
+    assert built_in <= set(tdp.available_backends())
+    assert built_in <= set(jdp.available_backends())
+
+    def run(pkg):
+        if backend == "mq":
+            sess = pkg.open_dataplane(None, pkg.Topology(**TOPO_ARGS),
+                                      backend="mq")
+            with sess.writer("w0") as w:
+                w.write_tokens(_stream())
+        else:
+            data = tdata if pkg is tdp else jdata
+            sess = pkg.open_dataplane(
+                None, pkg.Topology(dp=2), backend="colocated",
+                config=data.ColocatedConfig(workers=1), batch_cpu_items=4)
+            sess.writer().__enter__()
+        r = sess.reader(dp_rank=1, cp_rank=0)
+        rows = []
+        for _ in range(3):
+            b = r.next_batch(timeout_s=5)
+            rows.append((b.step, b.version, b.payload,
+                         r.checkpoint().encode()))
+        sess.close()
+        return rows
+    assert run(tdp) == run(jdp)
 
 
-@pytest.mark.parametrize("opts", [{"streams": {"a": 1.0}},
-                                  {"resilience": True}])
+@pytest.mark.parametrize("opts", [{"streams": {"a": 1.0}}])
 def test_unported_session_options_are_refused(opts):
     with pytest.raises(tdp.UnsupportedOperation, match="ROADMAP"):
         tdp.open_dataplane(tcore.MemoryObjectStore(),
                            tdp.Topology(**TOPO_ARGS), **opts)
 
 
-def test_flight_recorder_is_refused():
-    sess = tdp.open_dataplane(tcore.MemoryObjectStore(),
-                              tdp.Topology(**TOPO_ARGS),
-                              obs_snap_interval_s=1.0)
-    with pytest.raises(tdp.UnsupportedOperation, match="ROADMAP"):
-        sess.reader(dp_rank=0)
-    with pytest.raises(tdp.UnsupportedOperation, match="ROADMAP"):
-        sess.writer("w0")
+def test_resilience_option_reads_back_in_the_reference():
+    """``resilience=True``: the port's clients write through one shared
+    ``ResilientStore``; the reference reads the store they wrote."""
+    store = tcore.MemoryObjectStore()
+    sess = tdp.open_dataplane(store, tdp.Topology(**TOPO_ARGS), namespace=NS,
+                              resilience=True)
+    assert isinstance(sess.store, tcore.ResilientStore)
+    assert sess.store.inner is store
+    with sess.writer("w0") as w:
+        w.write_tokens(_stream())
+    ours = {(d, c): [sess.reader(dp_rank=d, cp_rank=c).next_batch(
+        timeout_s=5).tokens.tobytes()] for d in range(2) for c in range(2)}
+    sess.close()
+    assert _read_all(jdp, store, N_BATCHES) == _read_all(tdp, store,
+                                                         N_BATCHES)
+    theirs = _read_all(jdp, store, 1)
+    assert {dc: [row[3] for row in rows] for dc, rows in theirs.items()} \
+        == ours
+
+
+def test_flight_recorder_option_publishes_what_the_reference_reads():
+    """``obs_snap_interval_s``: the port's writer and readers publish
+    snapshot chains the reference's recorder reads back."""
+    from repro.obs.recorder import component_dirs, latest_snapshot
+    store = tcore.MemoryObjectStore()
+    sess = tdp.open_dataplane(store, tdp.Topology(**TOPO_ARGS),
+                              namespace=NS, obs_snap_interval_s=0.0)
+    with sess.writer("w0") as w:
+        w.write_tokens(_stream())
+        prod = w.stats.metric_scope   # "producer.w0", suffixed on reuse
+    r = sess.reader(dp_rank=0, cp_rank=1)
+    for _ in range(2):
+        r.next_batch(timeout_s=5)
+    cons = r.stats.metric_scope
+    sess.close()
+    jns = jcore.Namespace(_view(store, jdp), NS)
+    assert component_dirs(jns) == sorted([cons, prod])
+    assert latest_snapshot(jns, cons)["metrics"][
+        f"{cons}.steps_consumed"] == 2
+    assert latest_snapshot(jns, prod)["metrics"][
+        f"{prod}.tgbs_written"] == N_BATCHES
 
 
 def test_watermarks_and_reclaim_interoperate():

@@ -524,3 +524,125 @@ def test_checkpoint_of_cuda_tensors_restores_bit_identically(cuda):
         int_dt = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
                   torch.int32: torch.int32}[b.dtype]
         assert torch.equal(a.cpu().view(int_dt), b.cpu().view(int_dt))
+
+
+# ---------------------------------------------------------------------------
+# The fused loop over the baselines and a resilient tgb session, on the card
+# ---------------------------------------------------------------------------
+
+def _baseline_topology():
+    from repro_torch.dataplane import Topology
+    return Topology(dp=2, cp=2, global_batch=8, seq_len=1024)
+
+
+def _stream_of(topo, n_batches):
+    n = n_batches * topo.global_batch * topo.seq_len
+    return ((np.arange(n) * 7 + 3) % 49152).astype(np.int32)
+
+
+def _checksums(host):
+    w = np.arange(1, host[0].shape[1] + 1, dtype=np.int64)
+    return [float((g.astype(np.int64) * w).sum() % 1000003) for g in host]
+
+
+@pytest.mark.parametrize("backend", ["mq", "colocated"])
+def test_fused_loop_over_a_baseline_puts_the_hosts_tokens_on_the_card(cuda,
+                                                                      backend):
+    """Depth 2 over the mq broker (one reader per (d, c)) and over the
+    colocated pool (``PackingTokenSource``): each step's checksum of its
+    device tokens equals its host grid's, and the host grids are the
+    packer's (mq) or the packer's over the delivered indices (colocated)."""
+    from repro_torch.data import ColocatedConfig, KafkaSimBroker
+    from repro_torch.data.packing import GlobalBatchPacker, assemble_grid
+    from repro_torch.dataplane import open_dataplane
+    from repro_torch.train.pipeline import (FusedTrainLoop, PackingTokenSource,
+                                            ReaderFanInSource)
+    topo = _baseline_topology()
+
+    def packed(tokens):
+        packer = GlobalBatchPacker(topo.global_batch, topo.seq_len, topo.dp,
+                                   topo.cp)
+        return [assemble_grid(b.slices, topo.global_batch, topo.seq_len,
+                              topo.dp, topo.cp)
+                for b in packer.add_tokens(tokens)]
+
+    writer, pulled = None, []
+    if backend == "mq":
+        sess = open_dataplane(KafkaSimBroker(), topo, backend="mq")
+        with sess.writer("w0") as w:
+            w.write_tokens(_stream_of(topo, 12))
+        src = ReaderFanInSource([sess.reader(dp_rank=d, cp_rank=c)
+                                 for d in range(2) for c in range(2)], topo)
+    else:
+        sess = open_dataplane(None, topo, backend="colocated",
+                              config=ColocatedConfig(),
+                              preprocess_cost_s=lambda i: 0.0002,
+                              batch_cpu_items=topo.global_batch)
+        reader = sess.reader()
+
+        def slices_of(indices):
+            offs = indices.astype(np.int64)[:, None] * topo.seq_len \
+                + np.arange(topo.seq_len)[None, :]
+            return ((offs.ravel() * 7 + 3) % 49152).astype(np.int32)
+
+        def pull(timeout_s):
+            ix = np.frombuffer(reader.next_batch(timeout_s=timeout_s).payload,
+                               dtype=np.int32)
+            pulled.append(ix.copy())
+            return slices_of(ix)
+
+        writer = sess.writer().__enter__()
+        src = PackingTokenSource(pull, topo)
+    host = []
+    try:
+        with FusedTrainLoop(src, _checksum_step, {"w": torch.zeros(
+                4, device=cuda)}, {}, topology=topo, depth=2,
+                timeout_s=30.0) as loop:
+            rep = loop.run(10, on_batch=lambda s, t: host.append(t.copy()))
+    finally:
+        if writer is not None:
+            writer.__exit__(None, None, None)
+        sess.close()
+    assert rep.losses == _checksums(host)
+    if backend == "mq":
+        want = packed(_stream_of(topo, 12))[:10]
+    else:
+        want = [packed(slices_of(ix))[0] for ix in pulled[:10]]
+    assert all(np.array_equal(a, b) for a, b in zip(host, want))
+
+
+def test_resilient_tgb_session_rides_out_a_throttle_with_the_same_grids(cuda):
+    """A resilient tgb session behind a scripted SlowDown storm delivers the
+    grids of a fault-free session to the card, and the storm bit."""
+    from repro_torch.core import (BrownoutPhase, FaultPolicy,
+                                  FaultyObjectStore, MemoryObjectStore,
+                                  ResilienceConfig)
+    from repro_torch.dataplane import open_dataplane
+    from repro_torch.train.pipeline import FusedTrainLoop, ReaderFanInSource
+    topo = _baseline_topology()
+
+    def run(store, **opts):
+        sess = open_dataplane(store, topo, namespace="runs/gpu", **opts)
+        with sess.writer("w0") as w:
+            w.write_tokens(_stream_of(topo, 12))
+        if isinstance(store, FaultyObjectStore):
+            store.script_brownout([BrownoutPhase(
+                0.0, 0.5, target_rate=40.0, retry_after_s=0.05)])
+        src = ReaderFanInSource([sess.reader(dp_rank=d, cp_rank=c)
+                                 for d in range(2) for c in range(2)], topo)
+        host = []
+        with FusedTrainLoop(src, _checksum_step, {"w": torch.zeros(
+                4, device=cuda)}, {}, topology=topo, depth=2,
+                timeout_s=30.0) as loop:
+            rep = loop.run(10, on_batch=lambda s, t: host.append(t.copy()))
+        throttled = getattr(sess.store, "resilience", None)
+        sess.close()
+        assert rep.losses == _checksums(host)
+        return host, throttled.throttled if throttled is not None else 0
+
+    clean, _ = run(MemoryObjectStore())
+    faulty = FaultyObjectStore(MemoryObjectStore(), FaultPolicy(seed=0))
+    stormy, throttled = run(faulty, resilience=ResilienceConfig(seed=0))
+    assert throttled > 0
+    assert all(np.array_equal(a, b) for a, b in zip(clean, stormy))
+    assert len(clean) == len(stormy) == 10

@@ -247,6 +247,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(modules) > 10
     assert {"repro_torch.run", "repro_torch.run.session", "repro_torch.ops",
             "repro_torch.ops.fsck", "repro_torch.train.checkpoint",
-            "repro_torch.data.sources",
-            "repro_torch.data.pipeline"} <= set(modules)
+            "repro_torch.data.sources", "repro_torch.data.pipeline",
+            "repro_torch.data.mq", "repro_torch.data.colocated",
+            "repro_torch.dataplane.mq_backend",
+            "repro_torch.dataplane.colocated_backend",
+            "repro_torch.core.resilience", "repro_torch.obs.recorder",
+            "repro_torch.launch.roofline"} <= set(modules)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
