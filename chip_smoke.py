@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            (from the repository root, one CUDA card)
     python3 chip_smoke.py --kernels rmsnorm,wkv6   (phases 1-3 for those only)
-    python3 chip_smoke.py --skip-serving           (phases 1-3 and 6-11)
+    python3 chip_smoke.py --skip-serving           (phases 1-3 and 6-12)
 
 Phases, each of which raises (exit code != 0) on failure:
 
@@ -127,13 +127,48 @@ Phases, each of which raises (exit code != 0) on failure:
    0, the data_wait share of each third, and the producer's latest
    snapshot under ``<ns>/obs/`` equal to the live registry.
 
+12. The cut of phase 9 through a ``TrainSession`` over a weighted mix
+   (``streams={"web": 0.5, "code": 0.3, "filtered": 0.2}``, ``mix_seed=11``)
+   on a ``MemoryObjectStore`` with a ``FaultInjector`` and no latency model,
+   at dp 2 x cp 1 (the derive worker decodes a source TGB as its DP slices
+   joined, whole rows only at cp 1), depth 2, readers prefetching 4, 14
+   steps. ``web``: one live producer thread (0.2 s a TGB) of seeded token
+   grids; ``code``: claimed as 4 shard chains before any write, written by
+   two live producers ``p0`` and ``p1``; ``filtered``: derived live from
+   ``web`` by a ``DeriveWorker`` (keep rows whose first token is even, pack
+   into 4 x 1024 grids, windows of 2 source TGBs) that the FaultInjector
+   kills at its second window's cursor commit, after that window's uploads;
+   a replacement 0.5 s later replays the window from the committed cursor
+   with no upload (every content address present). Every step's grid must
+   be the one the schedule names (the packer's for ``web`` and ``code``,
+   ``code``'s in its merged manifest order, the host's own derivation for
+   ``filtered``), the device tokens the host's, the ``filtered`` stream the
+   host's derivation byte for byte. After step 6 an aligned checkpoint must
+   bind step 6 and a composite token at mix position 6, then ``reclaim`` and
+   a ``Compactor`` cycle on ``code`` at its trim marker (or the checkpoint's
+   ``code`` watermark) must fold entries into a segment with the shard bases
+   at the segment's folds; steps 7-14 follow. The state is freed; the run
+   resumed with ``web``'s and ``code``'s weights swapped must be refused (the
+   MixPlan ``ValueError``); ``TrainSession.resume`` must give step 6, the
+   bound leaves bit for bit, and 8 steps replaying run A's grids 7-14 with
+   losses within RESUME_LOSS_RTOL (``code`` cold-starts through the
+   segment); the token with ``code``'s cursor one step back must be refused
+   by the restore and, forced under a restored reader, by the schedule
+   guard; fsck must report no error, see the derive cursors and the shard
+   bases at the segment's folds. Printed, each beside the card's name and
+   power limit: tokens/s at the median step, the split, the derive worker's
+   TGBs, uploads and hits before and after the kill, the compactor's cycle,
+   the checkpoint's upload and commit, resume + restore, peak memory,
+   launches (33 / 16 a step) and the phase's seconds.
+
 The last lines are the ``nvidia-smi`` name/power-limit line as it prints
 it, one JSON object with every kernel's numbers, and ``{"ok": true,
 "device": {...}}``. A kernel's ``launches`` is its count on the serving path
 it was ported for (granite-8b for RMSNorm and both attention kernels,
 rwkv6-3b for WKV6); ``launches_by_path`` gives each path's count, the
 training paths' over their 3 steps, the fused path's over its 53, the
-resume path's over its 11, the failure path's over its steps.
+resume path's over its 11, the failure path's over its steps, the streams
+path's over its 22.
 """
 from __future__ import annotations
 
@@ -228,6 +263,20 @@ PRODUCE_DELAY_S = 0.2         # (b, c) the live producer's seconds a TGB
 RESTART_S = 1.0               # (b) seconds until the replacement writer enters
 BROWNOUT_WARMUP_TGBS = 4      # (c) TGBs committed before the run
 OBS_SNAP_S = 0.5              # (c) the flight recorder's interval
+# phase 12: the granite cut of phase 9 fed by a weighted mix of a raw stream,
+# a stream sharded into CODE_SHARDS manifest chains (folded by the compactor)
+# and a stream derived live from the raw one, checkpointed and resumed
+# through a composite cursor
+STREAMS_NS = "runs/streams"
+STREAM_WEIGHTS = {"web": 0.5, "code": 0.3, "filtered": 0.2}
+MIX_SEED = 11
+STREAM_STEPS = 14             # run A's steps
+STREAM_CKPT_STEP = 6          # run A's aligned checkpoint; run B replays the rest
+STREAM_LOOKAHEAD = 4          # steps of data beyond the last one (the ring's reach)
+STREAM_CP = 1                 # the derive worker decodes whole rows only at cp 1
+CODE_SHARDS = 4
+DERIVE_WINDOW = 2             # source TGBs a derive window
+DERIVE_RESTART_S = 0.5        # seconds from the worker's kill to its replacement
 # the forward kernels' names as the profiler lists them
 KERNEL_SYMBOLS = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "fa_fwd_kernel",
                   "decode_attention": "decode_kernel", "wkv6": "wkv6_kernel"}
@@ -1769,6 +1818,375 @@ def phase_failure(torch, kcommon, cfg, smi):
     return launches
 
 
+def phase_streams(torch, kcommon, cfg, smi):
+    """Phase 12: the cut of phase 9 (dp 2 x cp 1) trained off a weighted mix
+    of a live raw stream, a stream sharded into CODE_SHARDS manifest chains
+    and a stream derived live from the raw one, whose derive worker is
+    killed between an upload and its cursor commit; a composite aligned
+    checkpoint, a compactor cycle, the resume and its negative controls,
+    fsck. Returns the phase's launches."""
+    import dataclasses
+    import gc
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core import (Compactor, Consumer, FaultInjector, InjectedCrash,
+                                  MemoryObjectStore, MeshPosition, Namespace,
+                                  open_manifest_store, read_trim_marker,
+                                  run_producer_loop)
+    from repro_torch.data.packing import GlobalBatchPacker, assemble_grid
+    from repro_torch.dataplane import Topology
+    from repro_torch.graph import FilterOp, OpGraph, PackOp
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.obs.tracer import disable_tracing, enable_tracing
+    from repro_torch.ops import fsck, inspect_run
+    from repro_torch.run import TrainSession
+    from repro_torch.streams import MixPlan
+    from repro_torch.train import (OptimizerConfig, StepConfig, init_opt_state,
+                                   make_train_step)
+    from repro_torch.train.pipeline import FusedTrainLoop, ReaderFanInSource
+
+    def say(msg):
+        log(f"streams: {msg}  [{smi}]")
+
+    t_phase = time.monotonic()
+    topo = Topology(dp=FUSED_DP, cp=STREAM_CP, global_batch=TRAIN_GB, seq_len=TRAIN_SEQ)
+    plan = MixPlan(STREAM_WEIGHTS, seed=MIX_SEED)
+    need = plan.stream_counts(STREAM_STEPS + STREAM_LOOKAHEAD)
+    grid_tokens = TRAIN_GB * TRAIN_SEQ
+
+    def packed(tokens, flush=False):
+        """The host packer's grids (and slices) of ``tokens``."""
+        packer = GlobalBatchPacker(TRAIN_GB, TRAIN_SEQ, topo.dp, topo.cp)
+        batches = packer.add_tokens(tokens)
+        tail = packer.flush() if flush else None
+        batches += [tail] if tail is not None else []
+        return ([assemble_grid(b.slices, TRAIN_GB, TRAIN_SEQ, topo.dp, topo.cp)
+                 for b in batches], [b.slices for b in batches])
+
+    def keep_even(rows):
+        return rows[:, 0] % 2 == 0
+
+    # -- the host's data: web and code grids, and the host's own derivation --------------
+    rng = np.random.default_rng(SEED + 12)
+    web_grids, _ = packed(rng.integers(0, cfg.vocab_size, 64 * grid_tokens).astype(np.int32))
+    derived, n_src = [], 0
+    # enough windows for the mix, and a window after the replayed one
+    while len(derived) < need["filtered"] or n_src < 3 * DERIVE_WINDOW:
+        rows = np.concatenate([g[keep_even(g)] for g in web_grids[n_src:n_src + DERIVE_WINDOW]])
+        derived += packed(rows.ravel(), flush=True)[0]
+        n_src += DERIVE_WINDOW
+    n_web = max(need["web"], n_src)
+    web_grids, web_slices = packed(np.concatenate(web_grids[:n_web]).ravel())
+    code_grids, code_slices = {}, {}
+    for i, pid in enumerate(("p0", "p1")):
+        n = (need["code"] + 1 - i) // 2 + 1
+        toks = np.random.default_rng(SEED + 13 + i).integers(0, cfg.vocab_size, n * grid_tokens)
+        code_grids[pid], code_slices[pid] = packed(toks.astype(np.int32))
+
+    # -- the run: the store, the sharded claim, the session, the live writers ------------
+    store = MemoryObjectStore(faults=FaultInjector())     # no latency model
+    run_ns = Namespace(store, STREAMS_NS)
+    open_manifest_store(run_ns.stream("code"), shards=CODE_SHARDS)  # before any write
+    session = TrainSession(store, topo, namespace=STREAMS_NS, streams=STREAM_WEIGHTS,
+                           mix_seed=MIX_SEED)
+    errors = []
+
+    def produce(stream, writer_id, slices):
+        try:
+            with session.writer(writer_id, stream=stream) as w:
+                run_producer_loop(w.producer, len(slices), 0, produce_delay_s=PRODUCE_DELAY_S,
+                                  payload_fn=slices.__getitem__)
+        except BaseException as e:   # noqa: BLE001 - reported and raised below
+            errors.append(f"{stream}/{writer_id}: {type(e).__name__}: {e}")
+
+    graph = OpGraph("keep-even-first")
+    graph.add(FilterOp("keep-even", keep_even), source="web", output="rows")
+    graph.add(PackOp("pack", global_batch=TRAIN_GB, seq_len=TRAIN_SEQ, dp=topo.dp,
+                     cp=topo.cp), source="rows", output="filtered")
+    derive = {}
+
+    def derive_live():
+        """The derive worker, killed by the FaultInjector at its second
+        window's cursor commit; a replacement DERIVE_RESTART_S later replays
+        that window from the committed cursor, then derives the rest."""
+        try:
+            w1 = session.data.derive_worker(graph, window_steps=DERIVE_WINDOW)
+            try:
+                w1.run(max_source_steps=n_src, timeout_s=60.0)
+            except InjectedCrash as e:
+                derive["kill"] = (time.monotonic(), str(e))
+            derive["before"] = (w1.stats.tgbs_derived, w1.stats.tgbs_derived
+                                - w1.stats.store_hits, w1.stats.store_hits, w1.stats.windows)
+            time.sleep(DERIVE_RESTART_S)
+            w2 = session.data.derive_worker(graph, window_steps=DERIVE_WINDOW)
+            derive["resumed_at"] = w2.recover()
+            w2.derive_window(w2.src_step + DERIVE_WINDOW, timeout_s=60.0)
+            derive["replay"] = (w2.stats.tgbs_derived, w2.stats.store_hits)
+            w2.run(max_source_steps=n_src, timeout_s=60.0)
+            derive["after"] = (w2.stats.tgbs_derived, w2.stats.tgbs_derived
+                               - w2.stats.store_hits, w2.stats.store_hits, w2.stats.windows)
+        except BaseException as e:   # noqa: BLE001 - reported and raised below
+            errors.append(f"derive: {type(e).__name__}: {e}")
+
+    store.faults.crash_on("cput", key_substr=f"{STREAMS_NS}/streams/filtered/derive/", nth=2)
+    threads = [threading.Thread(target=produce, args=("web", "w0", web_slices), name="web"),
+               threading.Thread(target=produce, args=("code", "p0", code_slices["p0"]),
+                                name="code-p0"),
+               threading.Thread(target=produce, args=("code", "p1", code_slices["p1"]),
+                                name="code-p1"),
+               threading.Thread(target=derive_live, name="derive")]
+
+    step = make_train_step(cfg, OptimizerConfig(**TRAIN_OPT), StepConfig(microbatches=1))
+    want = expected_train_launches(cfg)
+    per_step, device_tokens = [], []
+
+    def checked_step(p, o, batch):
+        device_tokens.append(batch["tokens"].clone())
+        before = dict(kcommon.launches)
+        out = step(p, o, batch)
+        per_step.append({k: kcommon.launches[k] - before[k] for k in before})
+        return out
+
+    def fan_in(sess):
+        return ReaderFanInSource([sess.reader(dp_rank=d, cp_rank=c, prefetch_depth=4)
+                                  for d in range(topo.dp) for c in range(topo.cp)], topo)
+
+    def new_loop(sess, params, opt):
+        return FusedTrainLoop(fan_in(sess), checked_step, params, opt, topology=topo,
+                              depth=2, timeout_s=60.0)
+
+    params = init_params(param_specs(cfg), seed=SEED, device="cuda")
+    opt = init_opt_state(params)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves({"params": params, "opt": opt}))
+    say(f"mix {plan} over {STREAM_STEPS} steps: {plan.stream_counts(STREAM_STEPS)} steps a "
+        f"stream; web {n_web} TGBs, code {sum(len(v) for v in code_slices.values())} (p0 "
+        f"{len(code_slices['p0'])}, p1 {len(code_slices['p1'])}) into {CODE_SHARDS} shard "
+        f"chains, filtered = keep-even-first > pack over web's first {n_src} TGBs in windows "
+        f"of {DERIVE_WINDOW}: {len(derived)} grids by the host; dp {topo.dp} x cp {topo.cp} "
+        f"(the derive worker reads whole rows only at cp 1), live producers "
+        f"{PRODUCE_DELAY_S} s a TGB; state {state_bytes / 1e9:.3f} GB")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kcommon.reset_launches()
+
+    # -- run A: steps 1-6, the composite checkpoint, reclaim, compaction, 7-14 ---------------
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    grids_a = []
+    loop = new_loop(session, params, opt)
+    loop.start()
+    rep_a = [loop.run(STREAM_CKPT_STEP, on_batch=lambda i, g: grids_a.append(g.copy()))]
+    # the writers and the derive worker finish while the ring stays staged; the
+    # derived stream is read back whole before the reclaim can trim it
+    for t in threads:
+        t.join(timeout=60.0)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"streams: a writer or the derive worker failed: {errors}")
+    code_view = session.manifest_view("code")
+    code_order = [code_view.tgb_at_step(k) for k in range(code_view.total_steps)]
+    filtered_view = session.manifest_view("filtered")
+    cons = Consumer(run_ns.stream("filtered"), MeshPosition(0, 0, 1, 1))
+    got_filtered = [np.frombuffer(b"".join(cons.next_batch(timeout_s=5) for _ in range(topo.dp)),
+                                  np.int32).reshape(TRAIN_GB, TRAIN_SEQ)
+                    for _ in range(filtered_view.total_steps)]
+    derived_same = (len(got_filtered) == len(derived)
+                    and all(np.array_equal(a, b) for a, b in zip(got_filtered, derived)))
+    tracer = enable_tracing()
+    t_ck = time.perf_counter()
+    entry = loop.aligned_checkpoint(session, {"params": loop.params, "opt": loop.opt_state})
+    ck_s = time.perf_counter() - t_ck
+    disable_tracing()
+    spans = {s.name: s.dur for s in tracer.spans() if s.name.startswith("checkpoint.")}
+    bound = leaf_fingerprints(torch, {"params": loop.params, "opt": loop.opt_state})
+    token = entry.data_checkpoint()
+    if entry.step != STREAM_CKPT_STEP or not token.composite \
+            or token.mix_pos != STREAM_CKPT_STEP or entry.mix_seed != MIX_SEED:
+        raise AssertionError(f"streams: the checkpoint bound step {entry.step}, token "
+                             f"{token}, mix seed {entry.mix_seed}")
+    deleted = session.reclaim()
+    code_ns = run_ns.stream("code")
+    trim = read_trim_marker(code_ns)
+    safe_step = trim[0] if trim is not None else entry.watermark("code").step
+    manifests = open_manifest_store(code_ns)
+    compactor = Compactor(code_ns, manifests, min_fold=1)
+    t_c = time.perf_counter()
+    summary = compactor.run_cycle(safe_step=safe_step)
+    compact_ms = (time.perf_counter() - t_c) * 1e3
+    bases = [s.load_view(s.latest_version(hint=-1)).base_step for s in manifests.shards]
+    seg = manifests.segments.read(summary["segment"]) if summary["segment"] >= 0 else None
+    say(f"aligned checkpoint at step {entry.step} (seq {entry.seq}), composite token mix_pos "
+        f"{token.mix_pos}, cursors {[tuple(r) for r in token.streams]}; upload "
+        f"{spans['checkpoint.upload']:.3f} s = {state_bytes / spans['checkpoint.upload'] / 1e9:.3f} "
+        f"GB/s, commit {spans['checkpoint.commit'] * 1e3:.3f} ms, aligned_checkpoint "
+        f"{ck_s:.3f} s; reclaim deleted {deleted} TGBs; code trim marker {trim}")
+    say(f"compactor on code at safe step {safe_step} ({'its trim marker' if trim else 'the checkpoint watermark'}): "
+        f"folded {summary['folded']} entries into segment {summary['segment']} in "
+        f"{compact_ms:.3f} ms; segment folds {seg and seg.folds}, shard bases {bases}; "
+        f"{compactor.stats.trim_commits} trim commits")
+    if summary["folded"] <= 0 or seg is None or bases != list(seg.folds):
+        raise AssertionError(f"streams: the compactor folded {summary}, bases {bases}")
+    rep_a.append(loop.run(STREAM_STEPS - STREAM_CKPT_STEP,
+                          on_batch=lambda i, g: grids_a.append(g.copy())))
+    loop.stop()
+    wall_a = time.monotonic() - t0
+
+    # every step's grid the one the host expects, its device tokens the host's
+    host_of = {"web": web_grids, "filtered": derived,
+               "code": [code_grids[d.producer_id][d.producer_seq] for d in code_order]}
+    schedule = plan.schedule(STREAM_STEPS)
+    expect = [host_of[name][k] for name, k in schedule]
+    bad = [f"step {i + 1} ({name} {k}): not the host's grid"
+           for i, ((name, k), g, w) in enumerate(zip(schedule, grids_a, expect))
+           if not np.array_equal(g, w)]
+    bad += [f"step {i + 1}: device tokens are not the host tokens"
+            for i, (dev, g) in enumerate(zip(device_tokens, grids_a))
+            if dev.dtype != torch.int32 or not np.array_equal(dev.cpu().numpy(), g)]
+    med = statistics.median(t.wall_s for r in rep_a for t in r.timings)
+    walls = sum(r.totals()["wall_s"] for r in rep_a)
+    split = {k: sum(r.totals()[f"{k}_s"] for r in rep_a) / walls
+             for k in ("data_wait", "h2d", "compute", "other")}
+    kill_t, kill_msg = derive.get("kill", (float("nan"), None))
+    say(f"run A: {len(grids_a)} steps in {wall_a:.2f} s; {grid_tokens / med:.1f} tokens/s at "
+        f"the median step ({med * 1e3:.2f} ms); split data_wait {split['data_wait']:.4f} h2d "
+        f"{split['h2d']:.4f} compute {split['compute']:.4f} other {split['other']:.4f}; "
+        f"data_wait ms by step {[round(t.data_wait_s * 1e3, 2) for r in rep_a for t in r.timings]}; "
+        f"streams by step {[name for name, _ in schedule]}; every grid the host's and every "
+        f"step's device tokens the host's: {not bad}")
+    say(f"derive worker: killed at {kill_t - t0:.2f} s ({kill_msg}); before the kill "
+        f"(TGBs, uploads, hits, windows) {derive.get('before')}; the replacement "
+        f"{DERIVE_RESTART_S} s later resumed at source step {derive.get('resumed_at')} and its "
+        f"replayed window derived {derive.get('replay', (None,))[0]} TGBs with "
+        f"{derive.get('replay', (0, None))[1]} hits = "
+        f"{None if 'replay' not in derive else derive['replay'][0] - derive['replay'][1]} "
+        f"uploads; after (TGBs, uploads, hits, windows) {derive.get('after')}; the filtered "
+        f"stream ({filtered_view.total_steps} TGBs, read back before the reclaim) equals the "
+        f"host's derivation byte for byte: {derived_same}")
+    if bad or kill_msg is None or "replay" not in derive or derive["resumed_at"] != DERIVE_WINDOW \
+            or derive["replay"][0] <= 0 or derive["replay"][0] != derive["replay"][1] \
+            or not derived_same:
+        raise AssertionError(f"streams run A: {bad[:4]}; derive {derive}; filtered equal "
+                             f"{derived_same}")
+
+    # -- the crash: stop, close, free the trainer's state --------------------------------
+    losses_a = [t.loss for r in rep_a for t in r.timings]
+    session.close()
+    del loop, params, opt, device_tokens[:]
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_a = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- negative control (a): the run resumed with web's and code's weights swapped -------
+    swapped = {**STREAM_WEIGHTS, "web": STREAM_WEIGHTS["code"], "code": STREAM_WEIGHTS["web"]}
+    control = TrainSession.resume(store, STREAMS_NS, streams=swapped)
+    try:
+        control.reader(dp_rank=0, cp_rank=0)
+        refused_a = None
+    except ValueError as e:
+        refused_a = str(e)
+    control.close()
+    if refused_a is None or "MixPlan" not in refused_a:
+        raise AssertionError(f"streams control (a) (weights swapped): not refused: {refused_a}")
+    say(f"control (a) weights of web and code swapped: refused ({refused_a[:110]}...)")
+
+    # -- run B: resume from the RunManifest, restore, replay steps 7-14 ------------------
+    params = init_params(param_specs(cfg), seed=SEED + 1, device="cuda")
+    template = {"params": params, "opt": init_opt_state(params)}
+    del params
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed = TrainSession.resume(store, STREAMS_NS)
+    state = resumed.restore_model(template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del template
+    gc.collect()
+    got = leaf_fingerprints(torch, state)
+    moved = [p for (p, *a), (_, *b) in zip(got, bound) if a != b]
+    if resumed.resume_step != STREAM_CKPT_STEP or moved:
+        raise AssertionError(f"streams: resume_step {resumed.resume_step}, leaves moved {moved}")
+    grids_b = []
+    loop = new_loop(resumed, state["params"], state["opt"])
+    with loop:
+        rep_b = loop.run(STREAM_STEPS - STREAM_CKPT_STEP,
+                         on_batch=lambda i, g: grids_b.append(g.copy()))
+    code_seg = resumed.manifest_view("code").seg_seq
+    resumed.close()
+    del loop, state
+    gc.collect()
+    losses_b = rep_b.losses
+    rel = [abs(b - a) / abs(a) for a, b in zip(losses_a[STREAM_CKPT_STEP:], losses_b)]
+    same = [g.tobytes() for g in grids_b] == [g.tobytes() for g in grids_a[STREAM_CKPT_STEP:]]
+    say(f"TrainSession.resume + restore_model {restore_s:.3f} s = "
+        f"{state_bytes / restore_s / 1e9:.3f} GB/s; resume_step {resumed.resume_step}; leaves "
+        f"bit-identical to the bound state: {len(got)} of {len(got)}; run B's "
+        f"{len(grids_b)} steps consume run A's steps {STREAM_CKPT_STEP + 1}-{STREAM_STEPS} "
+        f"byte for byte: {same} (the code readers start through compact segment {code_seg}); "
+        f"losses {losses_b} against {losses_a[STREAM_CKPT_STEP:]}, largest relative difference "
+        f"{max(rel):.3e} (limit {RESUME_LOSS_RTOL:g})")
+    if not same or max(rel) > RESUME_LOSS_RTOL or code_seg < 0:
+        raise AssertionError("streams: the resumed steps are not run A's steps 7-14")
+
+    # -- negative control (b): the token with code's cursor one step back -------------------
+    rows = tuple((n, v, s - 1 if n == "code" else s) for n, v, s in token.streams)
+    control = TrainSession.resume(store, STREAMS_NS)
+    reader = control.reader(dp_rank=0, cp_rank=0)
+    try:
+        reader.restore(dataclasses.replace(token, streams=rows))
+        refused_b = None
+    except ValueError as e:
+        refused_b = str(e)
+    # past the token's check: the code reader rewound one step under a reader
+    # restored at the aligned token; the mix's schedule guard must refuse the
+    # first code step
+    v, s = token.stream_cursor("code")
+    reader._subs["code"].consumer.restore_cursor(v, s - 1)
+    guard, served = None, 0
+    try:
+        for _ in range(STREAM_STEPS - STREAM_CKPT_STEP):
+            reader.next_batch(timeout_s=10.0)
+            served += 1
+    except RuntimeError as e:
+        guard = str(e)
+    control.close()
+    if refused_b is None or "MixPlan" not in refused_b or guard is None:
+        raise AssertionError(f"streams control (b) (code one step back): restore {refused_b}, "
+                             f"guard {guard}")
+    say(f"control (b) code's cursor one step back: the restore refuses it ({refused_b[:90]}...); "
+        f"with the code reader rewound under a restored reader, the schedule guard refuses "
+        f"the first code step after {served} other steps ({guard[:80]}...)")
+
+    # -- fsck and inspect --------------------------------------------------------------
+    report = fsck(run_ns)
+    info = inspect_run(run_ns)
+    issues = report.all_issues()
+    dv = info["streams"]["filtered"].get("derive") or {}
+    shard_rows = info["streams"]["code"]["manifests"]["sharded"]
+    say(f"fsck: {report.summary()}; issues {[(i.severity, i.kind) for i in issues]}; filtered "
+        f"derive cursors {dv.get('cursors')} (latest {dv.get('cursor')}); code shard bases "
+        f"{[r['base_step'] for r in shard_rows['shards']]}, segments {shard_rows['segments']}")
+    if any(i.severity == "error" for i in issues) or not dv.get("cursors") \
+            or [r["base_step"] for r in shard_rows["shards"]] != list(seg.folds):
+        raise AssertionError("streams: fsck reports an error, or sees no derive cursor, or the "
+                             "code stream's shard bases disagree with the segment")
+
+    launches = dict(kcommon.launches)
+    wrong = [i for i, n in enumerate(per_step) if n != want]
+    say(f"launches over {len(per_step)} steps {launches}; a step {per_step[0]} (want {want}); "
+        f"max_memory_allocated run A {peak_a:.2f} GiB, resume {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB; phase {time.monotonic() - t_phase:.1f} s")
+    if wrong or len(per_step) != 2 * STREAM_STEPS - STREAM_CKPT_STEP:
+        raise AssertionError(f"streams: steps {wrong} launched other than {want}")
+    del store
+    gc.collect()
+    return launches
+
+
 def phase_train_vs_plain(torch, label, cfg, control_name, control):
     """A 2-layer full-width cut: one train step's loss, gradients and grad
     norm, kernel path against plain path, and a negative control that must
@@ -1853,7 +2271,7 @@ def main() -> int:
                     help="comma-separated kernel names: build and check only "
                          "these (phases 1-3) and skip the serving phases")
     ap.add_argument("--skip-serving", action="store_true",
-                    help="run phases 1-3 and the training phases 6-11 only")
+                    help="run phases 1-3 and the training phases 6-12 only")
     args = ap.parse_args()
     import torch
 
@@ -1972,6 +2390,11 @@ def main() -> int:
     paths["granite-8b failure"] = phase_failure(torch, kcommon, cut, smi)
     free()
     done(11)
+
+    # -- 12. a weighted mix of a raw, a sharded and a derived stream; checkpoint, resume ---
+    paths["granite-8b streams"] = phase_streams(torch, kcommon, cut, smi)
+    free()
+    done(12)
 
     # launches: each kernel's count on the serving path it was ported for
     # (granite-8b for K1-K3, rwkv6-3b for K4; their training paths with

@@ -5,10 +5,11 @@ imports: object stores, TGBs, manifests and the commit protocol, DAC, the
 producer and consumer clients, lifecycle (watermarks, reclamation, the trim
 marker), fault injection and the resilience layer (``ResilientStore``:
 backoff + retry budgets, AIMD throttle governor, hedged reads, circuit
-breaker). ``_msgpack`` stands in for the msgpack package (byte-identical
-output). The reference's compactor waits (ROADMAP Queue 1, item 2e).
+breaker) and the compactor of sharded manifest chains. ``_msgpack`` stands
+in for the msgpack package (byte-identical output).
 """
 from repro_torch.core.clock import Clock, SystemClock, VirtualClock
+from repro_torch.core.compactor import CompactStats, Compactor
 from repro_torch.core.commit import (CommitProtocol, CommitResult,
                                      ShardStats, ShardedCommitProtocol)
 from repro_torch.core.consumer import (Consumer, ConsumerStats, MeshPosition,
@@ -53,6 +54,7 @@ __all__ = [
     "retry_transient",
     "Clock", "SystemClock", "VirtualClock",
     "BrownoutPhase", "FaultPolicy", "FaultStats", "FaultyObjectStore",
+    "CompactStats", "Compactor",
     "CommitProtocol", "CommitResult", "ShardStats", "ShardedCommitProtocol",
     "ShardChooser",
     "Consumer", "ConsumerStats", "MeshPosition", "convert_logical_step",

@@ -1,8 +1,4 @@
-"""``open_dataplane`` — the single entry point to every data-plane backend.
-
-Multi-stream sessions (``repro/streams/``) are refused with
-``UnsupportedOperation`` until they are ported.
-"""
+"""``open_dataplane`` — the single entry point to every data-plane backend."""
 from __future__ import annotations
 
 from typing import Mapping, Optional
@@ -34,7 +30,14 @@ def open_dataplane(target, topology: Topology, backend: str = "tgb", *,
         vended by this session — the exactly-once cursor restore flow. With
         ``streams`` this must be a composite token (a MixedReader
         checkpoint).
-      streams, mix_seed: the reference's multi-stream mode; refused here.
+      streams: optional ``{name: weight}`` map of named TGB streams. When
+        given (tgb backend only) the session is multi-stream: ``writer(...,
+        stream=<name>)`` vends per-stream producers and ``reader(...)``
+        returns one MixedReader whose step sequence deterministically
+        interleaves the streams by weight.
+      mix_seed: seed of the deterministic mixing schedule (only meaningful
+        with ``streams``; the schedule is a pure function of
+        ``(weights, mix_seed, step)``).
       **backend_opts: forwarded to the backend session factory.
 
     Returns a session vending ``writer()`` / ``reader()`` handles that conform
@@ -46,7 +49,7 @@ def open_dataplane(target, topology: Topology, backend: str = "tgb", *,
       ValueError: ``resume`` token was captured on a different backend
         (cursors are not portable across transports) or is malformed, or
         ``backend`` is not a registered backend name.
-      UnsupportedOperation: ``streams`` given (not ported yet).
+      UnsupportedOperation: ``streams`` given with a non-tgb backend.
 
     Example::
 
@@ -74,9 +77,15 @@ def open_dataplane(target, topology: Topology, backend: str = "tgb", *,
             f"session uses {backend!r}; cursors are not portable across "
             f"transports")
     if streams is not None:
-        raise UnsupportedOperation(
-            "multi-stream sessions (repro/streams/) are not ported yet: "
-            "ROADMAP Queue 1, item 2e")
+        if backend != "tgb":
+            raise UnsupportedOperation(
+                f"multi-stream sessions need the object-store-native 'tgb' "
+                f"backend (per-stream namespace prefixes); got {backend!r}")
+        from repro_torch.streams import MultiStreamSession
+
+        return MultiStreamSession(target, topology, streams=streams,
+                                  mix_seed=mix_seed, namespace=namespace,
+                                  resume=ckpt, **backend_opts)
     factory = backend_factory(backend)
     return factory(target, topology, namespace=namespace, resume=ckpt,
                    **backend_opts)

@@ -25,10 +25,9 @@ Checks performed per namespace (and recursively per stream):
     and every watermark's manifest version must still be retained.
   * **derived streams** — on streams produced by ``repro.graph``: the
     derive-cursor chain must be contiguous, decodable, non-regressive, and
-    never ahead of the manifest (the port refuses a namespace holding a
-    derive cursor until ``graph/`` is ported); derived TGBs whose
-    provenance cites source TGBs the source manifest no longer resolves are
-    flagged "provenance-dangling"; derived outputs above the committed cursor are
+    never ahead of the manifest; derived TGBs whose provenance cites source
+    TGBs the source manifest no longer resolves are flagged
+    "provenance-dangling"; derived outputs above the committed cursor are
     reclassified as safe orphans (a restarted worker regenerates them
     content-addressed).
   * **RunManifest alignment** — on runs with a RunManifest: the entry chain
@@ -36,7 +35,9 @@ Checks performed per namespace (and recursively per stream):
     must exist intact (MANIFEST + every leaf at its recorded size); its data
     cursor must decode and still be restorable (manifest version retained,
     trim marker at or below the aligned step — per stream on multi-stream
-    runs); and model uploads no entry ever named (a trainer killed between
+    runs, where a sharded stream's retained range is its merged versions up
+    to the head: the one place the port departs from the reference, which
+    reads such a cursor against flat versions and calls it unreadable); and model uploads no entry ever named (a trainer killed between
     upload and commit) surface as safe orphans once a later entry
     supersedes them.
 """
@@ -51,14 +52,11 @@ from repro_torch.core.manifest import (MANIFEST_FORMAT_FLAT, DatasetView,
                                        ManifestStore, ShardedManifestStore,
                                        read_shard_config)
 from repro_torch.core.objectstore import Namespace, NoSuchKey
-from repro_torch.dataplane.types import Checkpoint, UnsupportedOperation
+from repro_torch.dataplane.types import Checkpoint
 from repro_torch.run.manifest import RunManifestError, RunManifestStore
 from repro_torch.train.checkpoint import checkpoint_dir_step, dtype_itemsize
 
 __all__ = ["FsckIssue", "FsckReport", "fsck", "list_streams"]
-
-#: the directory of a derived stream's derive cursors (``graph/cursor.py``)
-DERIVE_DIR = "derive"
 
 
 @dataclass(frozen=True)
@@ -405,7 +403,22 @@ def _check_trim_skew(ns: Namespace, view: Optional[DatasetView],
 
 
 def _stream_retained_versions(ns: Namespace, name: str) -> List[int]:
-    return _manifest_versions(ns.stream(name))
+    """Retained versions of stream ``name``'s chain. On a sharded stream an
+    aligned cursor's version is the merged scalar, restorable up to the
+    current head, so the range is ``[0, head]`` as ``fsck`` gives a sharded
+    run's own checks; the reference lists flat versions here, finds none on
+    a sharded stream and reports every composite cursor over one
+    unreadable."""
+    sns = ns.stream(name)
+    try:
+        n_shards = read_shard_config(sns)
+    except Exception:
+        n_shards = None  # the stream's own fsck reports the corrupt config
+    if n_shards is not None and n_shards > 1:
+        latest = ShardedManifestStore(sns, n_shards).latest_version()
+        return list(range(0, latest + 1, max(1, latest))) if latest >= 0 \
+            else []
+    return _manifest_versions(sns)
 
 
 def _check_runmanifest(ns: Namespace, versions: List[int],
@@ -581,10 +594,10 @@ def _check_derive(ns: Namespace, view: Optional[DatasetView],
                   parent_ns: Optional[Namespace]) -> None:
     """Derived-stream audits (streams produced by ``repro.graph``):
 
-      * **derive cursor chain** — the reference holds it contiguous,
-        decodable, non-regressive and never ahead of the manifest. The port
-        cannot decode a derive cursor yet: a namespace holding one raises
-        ``UnsupportedOperation`` (ROADMAP Queue 1, item 8).
+      * **derive cursor chain** — contiguous, decodable, non-regressive
+        (src_step and out_seq both monotone), and never ahead of the
+        manifest (a cursor binding outputs the manifest does not commit is
+        a torn derive commit — the worker commits the cursor last).
       * **provenance-dangling** — a derived TGB whose provenance names
         source TGB ids the source stream's manifest no longer resolves.
         Warn severity: a legitimately trimmed source looks the same as a
@@ -597,17 +610,43 @@ def _check_derive(ns: Namespace, view: Optional[DatasetView],
         *safe* orphans and ``--repair`` deletes them.
     """
     from repro_torch.core.tgb import TGBReader
+    from repro_torch.graph.cursor import DeriveCursorError, DeriveCursorStore
 
-    # the derive cursors' decoder and the chain audit belong to the graph
-    # package (DeriveCursorStore), which the port has not got: a namespace
-    # holding a cursor is refused, never audited as if it had none
-    cursors = [k for k in ns.store.list(ns.key(DERIVE_DIR))
-               if k.rsplit("/", 1)[-1].split(".")[0].isdigit()]
-    if cursors:
-        raise UnsupportedOperation(
-            f"{ns.prefix} holds derive cursors ({cursors[0]}, ...): their "
-            f"audit needs repro/graph/, which is not ported yet: ROADMAP "
-            f"Queue 1, item 8")
+    cur_store = DeriveCursorStore(ns)
+    seqs = cur_store.seqs()
+    for prev, cur in zip(seqs, seqs[1:]):
+        if cur != prev + 1:
+            report.issues.append(FsckIssue(
+                "error", "torn-derive-cursor-chain", cur_store.key(prev + 1),
+                f"derive cursor sequence jumps {prev} -> {cur}"))
+    cursors = {}
+    for seq in seqs:
+        try:
+            cursors[seq] = cur_store.read(seq)
+        except DeriveCursorError as e:
+            report.issues.append(FsckIssue(
+                "error", "corrupt-derive-cursor", cur_store.key(seq), str(e)))
+    prev_dc = None
+    for seq in sorted(cursors):
+        dc = cursors[seq]
+        if prev_dc is not None and (dc.src_step < prev_dc.src_step
+                                    or dc.out_seq < prev_dc.out_seq):
+            report.issues.append(FsckIssue(
+                "error", "regressive-derive-cursor", cur_store.key(seq),
+                f"cursor seq {seq} rolls progress back: src_step "
+                f"{prev_dc.src_step} -> {dc.src_step}, out_seq "
+                f"{prev_dc.out_seq} -> {dc.out_seq}"))
+        prev_dc = dc
+    latest = cursors.get(seqs[-1]) if seqs else None
+    if latest is not None and view is not None:
+        committed = max((ps.committed_offset
+                         for ps in view.producers.values()), default=-1)
+        if latest.out_seq > committed + 1:
+            report.issues.append(FsckIssue(
+                "error", "torn-derive-commit", cur_store.key(latest.seq),
+                f"derive cursor binds outputs through out_seq "
+                f"{latest.out_seq} but the manifest commits only through "
+                f"offset {committed} — the cursor must always commit last"))
     # -- provenance-dangling ---------------------------------------------------
     if view is not None and parent_ns is not None:
         src_ids: Dict[str, Optional[set]] = {}
@@ -635,7 +674,7 @@ def _check_derive(ns: Namespace, view: Optional[DatasetView],
                     f"longer resolves (trimmed source, or lost lineage) — "
                     f"re-derivation from scratch is impossible"))
     # -- orphan reclassification -----------------------------------------------
-    floor = 0   # no committed derive cursor (a namespace with one raised)
+    floor = latest.out_seq if latest is not None else 0
     for key in list(report.pending):
         parsed = _parse_tgb_key(ns, key)
         if parsed is None:

@@ -1,5 +1,4 @@
-"""TrainSession (port of ``repro.run.session``): one recoverable training
-run (model + data, atomically).
+"""TrainSession: one recoverable training run (model + data, atomically).
 
 Wraps ``open_dataplane`` and the model checkpoint store behind a single
 pair of operations:
@@ -36,10 +35,7 @@ Example::
     state = resumed.restore_model({"params": params, "opt": opt})
     step = resumed.resume_step          # in the *new* topology's units
 
-The port runs single-stream sessions only: ``streams=`` (given, or
-recovered from a multi-stream run's RunManifest entry) is refused by
-``open_dataplane`` with ``UnsupportedOperation`` until the streams package
-is ported (ROADMAP Queue 1, item 2e). Model state is a tree of tensors;
+Port of ``repro.run.session``. Model state is a tree of tensors;
 ``restore_model`` places each leaf on its template leaf's device.
 """
 from __future__ import annotations
@@ -123,7 +119,7 @@ class TrainSession:
             resume=resume_token, streams=self.streams_config,
             mix_seed=mix_seed, **extra)
         self._readers: List[object] = []
-        self._reclaim: Optional[Reclaimer] = None
+        self._reclaimers: Dict[Optional[str], Reclaimer] = {}
         self._cycle_entry: Optional[RunManifest] = None  # set per reclaim()
         self.stats = TrainStats(namespace.rsplit("/", 1)[-1] or "run")
 
@@ -250,29 +246,45 @@ class TrainSession:
         return self._entry
 
     # -- lifecycle ------------------------------------------------------------
-    def _reclaimer(self) -> Reclaimer:
-        if self._reclaim is None:
-            def source():
-                entry = self._cycle_entry
-                return None if entry is None else entry.watermark()
+    def _reclaimer(self, stream: Optional[str]) -> Reclaimer:
+        rec = self._reclaimers.get(stream)
+        if rec is None:
+            ns = self.ns if stream is None \
+                else self.data.streams[stream].ns
 
-            self._reclaim = Reclaimer(self.ns, watermark_source=source)
-        return self._reclaim
+            def source(name=stream):
+                entry = self._cycle_entry
+                return None if entry is None else entry.watermark(name)
+
+            rec = Reclaimer(ns, watermark_source=source)
+            self._reclaimers[stream] = rec
+        return rec
 
     def reclaim(self) -> int:
         """One reclamation cycle bounded by the last *committed* RunManifest
-        entry; returns TGBs deleted so far across the run."""
+        entry (per stream on multi-stream runs); returns TGBs deleted so
+        far across the run."""
+        # one RunManifest read serves every stream's cycle this round
         self._cycle_entry = self.runs.latest()
         self.stats.reclaim_cycles += 1
         try:
-            rec = self._reclaimer()
+            if self.streams_config:
+                total = 0
+                for name in self.data.streams:
+                    rec = self._reclaimer(name)
+                    rec.run_cycle()
+                    total += rec.stats.tgbs_deleted
+                return total
+            rec = self._reclaimer(None)
             rec.run_cycle()
             return rec.stats.tgbs_deleted
         finally:
             self._cycle_entry = None
 
     # -- passthrough / lifecycle ----------------------------------------------
-    def manifest_view(self):
+    def manifest_view(self, stream: Optional[str] = None):
+        if stream is not None:
+            return self.data.manifest_view(stream)
         return self.data.manifest_view()
 
     def close(self) -> None:

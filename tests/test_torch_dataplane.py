@@ -196,13 +196,6 @@ def test_baseline_backends_open_and_match_the_reference(backend):
     assert run(tdp) == run(jdp)
 
 
-@pytest.mark.parametrize("opts", [{"streams": {"a": 1.0}}])
-def test_unported_session_options_are_refused(opts):
-    with pytest.raises(tdp.UnsupportedOperation, match="ROADMAP"):
-        tdp.open_dataplane(tcore.MemoryObjectStore(),
-                           tdp.Topology(**TOPO_ARGS), **opts)
-
-
 def test_resilience_option_reads_back_in_the_reference():
     """``resilience=True``: the port's clients write through one shared
     ``ResilientStore``; the reference reads the store they wrote."""

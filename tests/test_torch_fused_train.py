@@ -6,10 +6,8 @@ JAX package: one store written by ``repro``'s writer, a JAX
 ``FusedTrainLoop`` over its jitted ``make_train_step`` and the port's loop
 over the same weights (``repro_torch.convert``), at depth 0 and 2, must
 consume the same grids and reach the same losses within the whole-model fp32
-tolerance, 1e-4 (``tests/test_models_smoke.py:85-97``).
-
-The twin of ``test_fused_loop_over_mixed_streams_aligns_composite_cursors``
-waits for the streams package (ROADMAP Queue 1, item 2e).
+tolerance, 1e-4 (``tests/test_models_smoke.py:85-97``); the same over a
+weighted mix of two streams read through ``MixedReader``s.
 """
 from __future__ import annotations
 
@@ -146,6 +144,41 @@ def test_kill_and_resume_replays_identical_batches_and_losses(tiny_step):
     assert b_batches == golden_batches
     np.testing.assert_allclose(rep_b.losses + rep_c.losses, golden_losses,
                                rtol=1e-6)
+
+
+def test_fused_loop_over_mixed_streams_aligns_composite_cursors(tiny_step):
+    """MixedReader under the ring: align/rewind must round-trip the
+    composite (per-stream <V, S> + mix position) cursor."""
+    cfg, step_fn, fresh = tiny_step
+    ns = "runs/fused_mixed"
+    streams = {"web": 0.5, "code": 0.5}
+
+    store = MemoryObjectStore()
+    sess = TrainSession(store, TOPO, namespace=ns, streams=streams)
+    for name in streams:
+        with sess.writer("w0", stream=name) as w:
+            w.write_tokens(_token_stream(8, cfg.vocab_size))
+
+    batches = []
+    params, opt = fresh()
+    with _loop(_fan_in(sess), step_fn, params, opt) as loop:
+        loop.run(3, on_batch=lambda s, t: batches.append(t.tobytes()))
+        entry = loop.aligned_checkpoint(
+            sess, {"params": loop.params, "opt": loop.opt_state})
+        loop.run(3, on_batch=lambda s, t: batches.append(t.tobytes()))
+    assert entry.step == 3
+    sess.close()
+
+    resumed = TrainSession.resume(store, ns)
+    assert resumed.resume_step == 3
+    template_p, template_o = fresh()
+    state = resumed.restore_model({"params": template_p, "opt": template_o})
+    replay = []
+    with _loop(_fan_in(resumed), step_fn, state["params"],
+               state["opt"]) as loop2:
+        loop2.run(3, on_batch=lambda s, t: replay.append(t.tobytes()))
+    resumed.close()
+    assert replay == batches[3:]   # the mixed stream replays byte-identically
 
 
 def test_packing_source_cannot_align_a_staged_ring():
@@ -583,3 +616,55 @@ def test_jax_cursor_snapshot_replays_in_the_port(jax_slice):
         _host_grids(_token_stream(10, 257))[5]
     assert all(ck.step == 6 for ck in src.cursors())
     tsess.close()
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_fused_loop_over_a_mix_matches_the_jax_loop(jax_slice, depth):
+    """A weighted mix of two streams written by the JAX writers: the JAX
+    loop over its MixedReaders and the port's over its own consume the same
+    grids (each the stream's packer grid the schedule names) and reach the
+    same losses within 1e-4."""
+    import repro.core as jcore
+    from repro.dataplane import open_dataplane as jax_open
+    from repro.train.optimizer import init_opt_state as jax_init_opt
+    from repro.train.pipeline import FusedTrainLoop as JaxLoop
+    from repro.train.pipeline import ReaderFanInSource as JaxFanIn
+    from repro_torch import convert
+    from repro_torch.streams import MixPlan
+    _, jtopo, jparams, np_params, jstep, tstep = jax_slice
+
+    weights, vocab = {"web": 0.7, "code": 0.3}, 257
+    plan = MixPlan(weights, seed=5)
+    need = plan.stream_counts(5)
+    store = jcore.MemoryObjectStore()
+    jsess = jax_open(store, jtopo, namespace="runs/mix", streams=weights,
+                     mix_seed=5)
+    streams = {name: (_token_stream(need[name] + 1, vocab) * (i + 3) + i)
+               % vocab for i, name in enumerate(sorted(weights))}
+    for name, toks in streams.items():
+        with jsess.writer("w0", stream=name) as w:
+            w.write_tokens(toks.astype(np.int32))
+    jsrc = JaxFanIn([jsess.reader(dp_rank=d) for d in range(TOPO.dp)], jtopo)
+    jgrids = []
+    with JaxLoop(jsrc, jstep, jparams, jax_init_opt(jparams), topology=jtopo,
+                 depth=depth, timeout_s=30.0) as jloop:
+        jrep = jloop.run(5, on_batch=lambda s, t: jgrids.append(t.tobytes()))
+    jsess.close()
+
+    tstore = MemoryObjectStore()
+    tstore._objects, tstore._lock = store._objects, store._lock
+    tsess = open_dataplane(tstore, TOPO, namespace="runs/mix",
+                           streams=weights, mix_seed=5)
+    params = convert.params_from_numpy(np_params, device="cpu")
+    tgrids = []
+    with _loop(_fan_in(tsess), tstep, params, init_opt_state(params),
+               depth=depth) as tloop:
+        trep = tloop.run(5, on_batch=lambda s, t: tgrids.append(t.tobytes()))
+    tsess.close()
+
+    host = {name: _host_grids(toks.astype(np.int32))
+            for name, toks in streams.items()}
+    want = [host[name][k] for name, k in plan.schedule(5)]
+    assert tgrids == jgrids == want
+    assert {name for name, _ in plan.schedule(5)} == set(weights)
+    np.testing.assert_allclose(trep.losses, jrep.losses, rtol=1e-4)

@@ -646,3 +646,70 @@ def test_resilient_tgb_session_rides_out_a_throttle_with_the_same_grids(cuda):
     assert throttled > 0
     assert all(np.array_equal(a, b) for a, b in zip(clean, stormy))
     assert len(clean) == len(stormy) == 10
+
+
+def test_fused_loop_over_a_mix_puts_the_hosts_tokens_on_the_card(cuda):
+    """Depth 2 over a weighted mix of a raw stream, a 2-shard stream and a
+    stream derived from the raw one (``MixedReader`` per (d, c)): each step's
+    host grid is the grid the schedule names (the packer's, or the host's
+    own derivation), and its checksum of the device tokens equals the host
+    grid's. CP is 1: the derive worker decodes a source TGB as its DP slices
+    joined, which is the row-major grid only when each slice holds whole
+    rows (as in the reference)."""
+    from repro_torch.core import MemoryObjectStore, open_manifest_store
+    from repro_torch.data.packing import GlobalBatchPacker, assemble_grid
+    from repro_torch.dataplane import Topology, open_dataplane
+    from repro_torch.graph import FilterOp, OpGraph, PackOp
+    from repro_torch.streams import MixPlan
+    from repro_torch.train.pipeline import FusedTrainLoop, ReaderFanInSource
+    topo = Topology(dp=2, cp=1, global_batch=8, seq_len=1024)
+    gb, sl = topo.global_batch, topo.seq_len
+    weights, steps = {"web": 0.5, "code": 0.3, "filtered": 0.2}, 10
+    need = MixPlan(weights, seed=11).stream_counts(steps)
+
+    def packed(tokens):
+        packer = GlobalBatchPacker(gb, sl, topo.dp, topo.cp)
+        return [assemble_grid(b.slices, gb, sl, topo.dp, topo.cp)
+                for b in packer.add_tokens(tokens)]
+
+    store = MemoryObjectStore()
+    sess = open_dataplane(store, topo, namespace="runs/gpu-mix",
+                          streams=weights, mix_seed=11)
+    open_manifest_store(sess.streams["code"].ns, shards=2)
+    rng = np.random.default_rng(0)
+    n_web = need["web"] + 2 * need["filtered"] + 2
+    tokens = {"web": rng.integers(0, 49152, n_web * gb * sl).astype(np.int32),
+              "code": _stream_of(topo, need["code"])}
+    for name, toks in tokens.items():
+        with sess.writer("w0", stream=name) as w:
+            w.write_tokens(toks)
+    graph = OpGraph("even-first")
+    graph.add(FilterOp("even", lambda rows: rows[:, 0] % 2 == 0),
+              source="web", output="rows")
+    graph.add(PackOp("pack", global_batch=gb, seq_len=sl, dp=topo.dp,
+                     cp=topo.cp), source="rows", output="filtered")
+    sess.derive_worker(graph, window_steps=2).run(max_source_steps=n_web,
+                                                  timeout_s=5)
+    # the host's own derivation: each window's even-first rows, packed and
+    # its remainder zero-padded
+    web_grids = [g.reshape(gb, sl) for g in tokens["web"].reshape(n_web, -1)]
+    derived = []
+    for w0 in range(0, n_web, 2):
+        rows = np.concatenate([g[g[:, 0] % 2 == 0]
+                               for g in web_grids[w0:w0 + 2]])
+        pad = (-len(rows)) % gb
+        rows = np.concatenate([rows, np.zeros((pad, sl), np.int32)])
+        derived += packed(rows.ravel())
+    host_of = {"web": packed(tokens["web"]), "code": packed(tokens["code"]),
+               "filtered": derived}
+    want = [host_of[name][k] for name, k in sess.plan.schedule(steps)]
+    src = ReaderFanInSource([sess.reader(dp_rank=d) for d in range(2)], topo)
+    host = []
+    with FusedTrainLoop(src, _checksum_step, {"w": torch.zeros(
+            4, device=cuda)}, {}, topology=topo, depth=2,
+            timeout_s=30.0) as loop:
+        rep = loop.run(steps, on_batch=lambda s, t: host.append(t.copy()))
+    sess.close()
+    assert rep.losses == _checksums(host)
+    assert all(np.array_equal(a, b) for a, b in zip(host, want))
+    assert len(host) == steps

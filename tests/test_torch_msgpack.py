@@ -4,8 +4,10 @@ The data plane's wire documents must be byte-identical between the packages,
 so a store written by one reads back in the other. Each document type is
 taken from a store the JAX package wrote (TGB footers, flat and delta
 manifests, the shard config, watermarks, the trim marker, an aligned run's
-RunManifest entries and model-checkpoint ``MANIFEST.ckpt`` indexes) or
-minted by it (a Checkpoint token), re-encoded by the port and compared
+RunManifest entries and model-checkpoint ``MANIFEST.ckpt`` indexes, a
+derived stream's derive cursors and canonical provenance documents, a
+compact segment) or minted by it (Checkpoint tokens, a composite one
+among them), re-encoded by the port and compared
 byte for byte; the port's own encoders are held to the same bytes. Seeded random trees of the
 codec's subset check ``packb`` at both ``use_bin_type`` settings and
 ``unpackb`` against ``msgpack.unpackb``.
@@ -20,10 +22,14 @@ pytest.importorskip("torch")
 msgpack = pytest.importorskip("msgpack")
 ml_dtypes = pytest.importorskip("ml_dtypes")
 
-from repro.core import MemoryObjectStore  # noqa: E402
+from repro.core import Compactor, MemoryObjectStore  # noqa: E402
+from repro.core import Namespace as JaxNamespace  # noqa: E402
+from repro.core import open_manifest_store as jax_open_manifest_store  # noqa: E402
 from repro.core.manifest import MANIFEST_FORMAT_FLAT  # noqa: E402
 from repro.core.tgb import TGBFooter as JaxFooter  # noqa: E402
 from repro.dataplane import Topology, open_dataplane  # noqa: E402
+from repro.graph import DeriveWorker, FilterOp, OpGraph, PackOp  # noqa: E402
+from repro.graph.provenance import _canonical as jax_canonical  # noqa: E402
 from repro.run import TrainSession  # noqa: E402
 from repro_torch.core import _msgpack  # noqa: E402
 from repro_torch.core import manifest as tmanifest  # noqa: E402
@@ -32,6 +38,8 @@ from repro_torch.core.objectstore import MemoryObjectStore as TStore  # noqa: E4
 from repro_torch.core.objectstore import Namespace  # noqa: E402
 from repro_torch.core.tgb import TGBFooter  # noqa: E402
 from repro_torch.dataplane.types import Checkpoint  # noqa: E402
+from repro_torch.graph import DeriveCursor, Provenance  # noqa: E402
+from repro_torch.graph.provenance import _canonical  # noqa: E402
 from repro_torch.run import RunManifest  # noqa: E402
 
 TOPO = Topology(dp=2, cp=2, global_batch=4, seq_len=16)
@@ -84,10 +92,33 @@ def jax_documents():
                         "opt": {"step": np.int32(step + 1)}})
     run.checkpoint({"w": np.float32(2.0)})   # the same step: a retry dir
     run.close()
+    # a mix's composite token, a derived stream (derive cursors, provenance)
+    # and a compact segment of the sharded run
+    mix = open_dataplane(store, TOPO, namespace="runs/derive",
+                         streams={"raw": 0.5, "code": 0.5}, mix_seed=3)
+    for name in ("raw", "code"):
+        with mix.writer("w0", stream=name) as w:
+            w.write_tokens(tokens)
+    mixed = mix.reader(dp_rank=1, cp_rank=0)
+    for _ in range(3):
+        mixed.next_batch(timeout_s=5)
+    tokens_ck.append(mixed.checkpoint().encode())
+    mix.close()
+    graph = OpGraph("thirds")
+    graph.add(FilterOp("thirds", lambda rows: rows[:, 0] % 3 == 0),
+              source="raw", output="rows")
+    graph.add(PackOp("pack", global_batch=4, seq_len=16, dp=2, cp=2),
+              source="rows", output="filtered")
+    DeriveWorker(JaxNamespace(store, "runs/derive"), graph, TOPO,
+                 window_steps=2).run(max_source_steps=6, timeout_s=5)
+    sharded_ns = JaxNamespace(store, "runs/sharded")
+    assert Compactor(sharded_ns, jax_open_manifest_store(sharded_ns),
+                     min_fold=1).run_cycle(safe_step=4)["folded"] > 0
 
     docs = {"footer": [], "manifest": [], "shard_config": [],
             "watermark": [], "trim_marker": [], "checkpoint": [],
-            "runmanifest": [], "model_manifest": []}
+            "runmanifest": [], "model_manifest": [], "derive_cursor": [],
+            "segment": [], "provenance": []}
     for key in store.list("runs/"):
         raw = store.get(key)
         if key.endswith(".tgb"):
@@ -104,6 +135,13 @@ def jax_documents():
             docs["runmanifest"].append(raw)
         elif key.endswith("MANIFEST.ckpt"):
             docs["model_manifest"].append(raw)
+        elif key.endswith(".dc"):
+            docs["derive_cursor"].append(raw)
+        elif key.endswith(".seg"):
+            docs["segment"].append(raw)
+        if key.endswith(".tgb") and "/filtered/" in key:
+            prov = JaxFooter.from_bytes(_footer_bytes(raw)).provenance
+            docs["provenance"].append(jax_canonical(prov))
     docs["checkpoint"] = [base64.urlsafe_b64decode(t) for t in tokens_ck]
     for kind, raws in docs.items():
         assert raws, f"the JAX run wrote no {kind} document"
@@ -111,7 +149,8 @@ def jax_documents():
 
 
 KINDS = ["footer", "manifest", "shard_config", "watermark", "trim_marker",
-         "checkpoint", "runmanifest", "model_manifest"]
+         "checkpoint", "runmanifest", "model_manifest", "derive_cursor",
+         "segment", "provenance"]
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -149,6 +188,16 @@ def test_port_encoders_write_the_reference_bytes(jax_documents):
         store.put(ns.manifest_key(doc["version"]), raw)
         view = tmanifest.ManifestStore(ns).load_view(doc["version"])
         assert tmanifest.encode_flat_manifest(view) == raw
+    # the derive cursor, the canonical provenance document (its bytes are
+    # the derived TGB's content address) and the compact segment
+    for raw in jax_documents["derive_cursor"]:
+        assert DeriveCursor.unpack(raw).pack() == raw
+    for raw in jax_documents["provenance"]:
+        doc = msgpack.unpackb(raw, raw=False)
+        assert _canonical(doc) == raw
+        assert _canonical(Provenance.from_wire(doc).to_wire()) == raw
+    for raw in jax_documents["segment"]:
+        assert tmanifest.CompactSegment.unpack(raw).pack() == raw
     # the shard config as write_shard_config writes it
     ns = Namespace(TStore(), "runs/sharded")
     tmanifest.write_shard_config(ns, 2)

@@ -9,10 +9,9 @@ reclamation and the fsck audits of the aligned chain), of the TrainSession
 and fsck tests of ``tests/test_elastic.py`` (factor DP resizes) and of the
 checkpoint tests of ``tests/test_train.py``; then the port's own rules:
 tensor leaves land on their template leaf's device with the recorded dtype,
-bf16 needs no ``ml_dtypes``, and the branches with no ported module behind
-them (multi-stream sessions, derive cursors) are refused by name. msgpack
-documents are written with the port's codec. The twins that need streams,
-the mq backend or ``repro.graph`` wait (ROADMAP Queue 1, items 2c, 2e, 8).
+and bf16 needs no ``ml_dtypes``. msgpack documents are written with the
+port's codec. The multi-stream and derived-stream twins are in
+``tests/test_torch_streams.py`` and ``tests/test_torch_graph.py``.
 """
 import base64
 
@@ -613,24 +612,6 @@ def test_numpy_template_leaves_restore_as_numpy_arrays(ns):
     assert got["x"].dtype == np.dtype(ml_dtypes.bfloat16)
     assert got["x"].view(np.int16).tobytes() == _bits(x)
     assert isinstance(got["s"], np.ndarray) and float(got["s"]) == 2.0
-
-
-def test_train_session_refuses_streams_by_roadmap_item():
-    with pytest.raises(UnsupportedOperation, match="item 2e"):
-        TrainSession(MemoryObjectStore(), Topology(dp=1, cp=1),
-                     namespace=NS, streams={"web": 0.7, "code": 0.3})
-
-
-def test_fsck_refuses_a_namespace_with_derive_cursors():
-    """The derive-cursor audit needs the graph package: a derived stream's
-    namespace is refused, never reported clean."""
-    store = MemoryObjectStore()
-    _aligned_run(store)
-    ns = Namespace(store, NS)
-    assert fsck(ns).clean
-    store.put(ns.key("derive", "00000000.dc"), b"cursor")
-    with pytest.raises(UnsupportedOperation, match="item 8"):
-        fsck(ns)
 
 
 def test_fsck_checks_bf16_leaf_sizes():
