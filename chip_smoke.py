@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            (from the repository root, one CUDA card)
     python3 chip_smoke.py --kernels rmsnorm,wkv6   (phases 1-3 for those only)
-    python3 chip_smoke.py --skip-serving           (phases 1-3 and 6-12)
+    python3 chip_smoke.py --skip-serving           (phases 1-3 and 6-13)
 
 Phases, each of which raises (exit code != 0) on failure:
 
@@ -117,15 +117,22 @@ Phases, each of which raises (exit code != 0) on failure:
    thread (``run_producer_loop``, 0.2 s a TGB) dies before its 5th TGB
    without finalizing, a replacement writer recovers on enter from the
    manifest 1 s later and continues, and the trainer must pass the same
-   check, with the data_wait of the steps around the kill printed; (c) the
+   check, with the data_wait of the steps around the kill printed; the
+   session's flight recorder is on (every OBS_SNAP_S), and the operator
+   CLI's ``top`` and ``obs --json`` (``repro_torch.ops.main``, in process)
+   over ``runs/kill`` must render the killed incarnation of ``w0``'s
+   producer from storage alone, with work in its last snapshot, and the
+   replacement as another incarnation, no rate taken across the two; (c) the
    tgb arm through ``FaultyObjectStore(MemoryObjectStore(LatencyModel()),
    FaultPolicy(slow_get_rate=0.15, slow_get_s=0.06))`` with fig16's storm
    (``BrownoutPhase(target_rate=120, retry_after_s=0.1)``) over the middle
    third of the run, ``resilience=`` fig16's client, a live producer with
    ``spill_limit=256`` and flight-recorder snapshots: grids and losses
    bit-identical to a fault-free run from the same state, throttles seen >
-   0, the data_wait share of each third, and the producer's latest
-   snapshot under ``<ns>/obs/`` equal to the live registry.
+   0, the data_wait share of each third, the producer's latest
+   snapshot under ``<ns>/obs/`` equal to the live registry, and the
+   resilient store's ``throttled`` in ``obs --json`` over ``runs/brownout``
+   equal to the live registry's.
 
 12. The cut of phase 9 through a ``TrainSession`` over a weighted mix
    (``streams={"web": 0.5, "code": 0.3, "filtered": 0.2}``, ``mix_seed=11``)
@@ -155,11 +162,29 @@ Phases, each of which raises (exit code != 0) on failure:
    segment); the token with ``code``'s cursor one step back must be refused
    by the restore and, forced under a restored reader, by the schedule
    guard; fsck must report no error, see the derive cursors and the shard
-   bases at the segment's folds. Printed, each beside the card's name and
+   bases at the segment's folds. Then the operator CLI in process over the
+   phase's store (the checkpoints, three streams): ``inspect --json`` must
+   equal ``inspect_run``, ``fsck --json`` exit 0 with the encoding of the
+   phase's fsck report, ``trim --ranks 2 --json`` run one cycle a stream and
+   ``fsck`` exit 0 after it. Printed, each beside the card's name and
    power limit: tokens/s at the median step, the split, the derive worker's
    TGBs, uploads and hits before and after the kill, the compactor's cycle,
-   the checkpoint's upload and commit, resume + restore, peak memory,
-   launches (33 / 16 a step) and the phase's seconds.
+   the checkpoint's upload and commit, resume + restore, each CLI
+   command's ms, peak memory, launches (33 / 16 a step) and the phase's
+   seconds.
+
+13. The chaos harness and the operator CLI's entry points, host code that
+   launches no kernel, as subprocesses from the repository root with
+   ``PYTHONPATH=src``: (a) ``python -m repro_torch.chaos --json --seed S``
+   for each of CHAOS_SEEDS at once (the last with ``--trace``): every
+   scenario of CHAOS_SCENARIOS must pass with fsck clean after, each one's
+   steps delivered, orphans, faults injected and recovery ms printed;
+   ``--list`` must name the same scenarios and the trace hold spans. (b)
+   ``python -m repro_torch.ops --root DIR -n runs/job`` over a
+   ``FileObjectStore`` run built as ``tests/test_ops.py``'s ``file_run``
+   with a planted orphan TGB: ``--json fsck`` 1 (naming the orphan),
+   ``fsck --repair`` 1, ``fsck`` 0, ``inspect``, ``trim``, ``top`` 0, and a
+   ``--root`` that does not exist 2, each command's ms printed.
 
 The last lines are the ``nvidia-smi`` name/power-limit line as it prints
 it, one JSON object with every kernel's numbers, and ``{"ok": true,
@@ -168,12 +193,14 @@ it was ported for (granite-8b for RMSNorm and both attention kernels,
 rwkv6-3b for WKV6); ``launches_by_path`` gives each path's count, the
 training paths' over their 3 steps, the fused path's over its 53, the
 resume path's over its 11, the failure path's over its steps, the streams
-path's over its 22.
+path's over its 22, and phase 13's host path's (none).
 """
 from __future__ import annotations
 
 import contextlib
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -277,6 +304,15 @@ STREAM_CP = 1                 # the derive worker decodes whole rows only at cp 
 CODE_SHARDS = 4
 DERIVE_WINDOW = 2             # source TGBs a derive window
 DERIVE_RESTART_S = 0.5        # seconds from the worker's kill to its replacement
+# phase 13: the chaos harness and the operator CLI's entry points, host code
+CHAOS_SEEDS = (0, 1)
+CHAOS_SCENARIOS = (           # src/repro_torch/chaos/scenarios.py's registry
+    "brownout_throttle_storm", "compactor_midfold_kill", "consumer_midstep_kill",
+    "cput_conflict_storm", "derive_worker_midpublish_kill", "flaky_reads",
+    "mixed_reader_midstep_kill", "producer_kill_obs_postmortem", "producer_post_upload_kill",
+    "producer_precommit_kill", "reclaimer_midtrim_kill", "shard_conflict_storm",
+    "store_outage_resume", "trainer_midcheckpoint_kill")
+HOST_TIMEOUT_S = 300          # a subprocess of phase 13
 # the forward kernels' names as the profiler lists them
 KERNEL_SYMBOLS = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "fa_fwd_kernel",
                   "decode_attention": "decode_kernel", "wkv6": "wkv6_kernel"}
@@ -284,6 +320,75 @@ KERNEL_SYMBOLS = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "fa_fwd_kernel
 
 def log(*a):
     print(*a, flush=True)
+
+
+def top_and_obs(store, namespace):
+    """``top`` and ``obs --json`` over ``namespace``, from storage alone:
+    (top's text, obs's rows by component, each command's ms)."""
+    rc_top, top, top_ms = run_ops(store, namespace, "top")
+    rc_obs, obs, obs_ms = run_ops(store, namespace, "--json", "obs")
+    if rc_top != 0 or rc_obs != 0:
+        raise AssertionError(f"top / obs over {namespace} exited {rc_top} / {rc_obs}")
+    rows = {r["component"]: r for r in json.loads(obs)["components"]}
+    return top, rows, (top_ms, obs_ms)
+
+
+def postmortem(store, namespace, killed, replacement) -> str:
+    """The operator's post-mortem of a killed producer from storage alone
+    (``producer_kill_obs_postmortem`` of ``repro_torch.chaos``): ``top``
+    renders the killed incarnation, component ``killed``, with work in its
+    last snapshot, and its replacement, ``replacement``, as another
+    incarnation; each component's rate window holds one incarnation, so no
+    rate is taken across the two. Returns what it saw; raises if not."""
+    from repro_torch.core import Namespace
+    from repro_torch.obs.recorder import read_snapshots
+
+    top, rows, cli_ms = top_and_obs(store, namespace)
+    dead, repl = rows.get(killed), rows.get(replacement)
+    incs = {c: sorted({s["inc"] for s in read_snapshots(Namespace(store, namespace), c, last=8)})
+            for c in (killed, replacement)}
+    top_rows = [line.strip() for line in top.splitlines() if line.strip().startswith("producer.")]
+    if killed not in top or replacement not in top or dead is None or repl is None \
+            or dead["metrics"].get("tgbs_written", 0) < 1 or dead["inc"] == repl["inc"] \
+            or incs != {killed: [dead["inc"]], replacement: [repl["inc"]]}:
+        raise AssertionError(f"top over {namespace} does not render the killed producer "
+                             f"{killed} and its replacement {replacement} as two "
+                             f"incarnations: {top_rows}, {incs}")
+    return (f"top over {namespace} after the kill ({cli_ms[0]:.1f} ms; obs --json "
+            f"{cli_ms[1]:.1f} ms): {top_rows}; the killed incarnation {killed} (inc "
+            f"{dead['inc']}, {dead['snaps']} snapshots, last tgbs_written "
+            f"{dead['metrics'].get('tgbs_written')}, rates "
+            f"{ {k: round(v, 2) for k, v in dead['rates'].items() if 'tgbs' in k} }), the "
+            f"replacement {replacement} (inc {repl['inc']}, {repl['snaps']} snapshots, "
+            f"tgbs_written {repl['metrics'].get('tgbs_written')}); incarnations in each rate "
+            f"window {incs}")
+
+
+def store_row_from_storage(inner, namespace, resilient):
+    """``top`` and ``obs --json`` over ``namespace`` on ``inner``, the store
+    under the ResilientStore ``resilient``, once that wrapper's last word
+    is in storage (the recorder snaps on its heartbeat, and never retries a
+    snapshot the storm shed): (top's text, its ``store.*`` row, ms)."""
+    from repro_torch.core import Namespace
+    from repro_torch.obs.recorder import latest_snapshot
+
+    rs = resilient.resilience
+    snap = latest_snapshot(Namespace(inner, namespace), rs.metric_scope)
+    if snap is None or snap["metrics"].get(f"{rs.metric_scope}.throttled") != rs.throttled:
+        resilient._recorder.snap()
+    top, rows, cli_ms = top_and_obs(inner, namespace)
+    return top, rows.get(rs.metric_scope) or {"metrics": {}}, cli_ms
+
+
+def run_ops(store, namespace, *args):
+    """``python -m repro_torch.ops`` in process over ``store`` (its
+    ``--root`` is not read when a store is given): (exit code, output, ms)."""
+    from repro_torch.ops import main as ops_main
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    rc = ops_main(["--root", "-", "-n", namespace, *args], store=store, out=out)
+    return rc, out.getvalue(), (time.perf_counter() - t0) * 1e3
 
 
 def nvidia_smi_line() -> str:
@@ -1578,6 +1683,7 @@ def phase_failure(torch, kcommon, cfg, smi):
     def say(msg):
         log(f"failure: {msg}  [{smi}]")
 
+
     t_phase = time.monotonic()
     topo = Topology(dp=FUSED_DP, cp=FUSED_CP, global_batch=TRAIN_GB, seq_len=TRAIN_SEQ)
     stream = fused_stream(np, cfg)
@@ -1672,8 +1778,9 @@ def phase_failure(torch, kcommon, cfg, smi):
                              "into a BatchTimeout within the loop's timeout")
 
     # -- (b) a tgb producer dies after 5 TGBs; a replacement recovers ------------------------
-    session = open_dataplane(MemoryObjectStore(latency=LatencyModel()), topo,
-                             namespace="runs/kill")
+    kill_store = MemoryObjectStore(latency=LatencyModel())
+    session = open_dataplane(kill_store, topo, namespace="runs/kill",
+                             obs_snap_interval_s=OBS_SNAP_S)
     events = {}
 
     class Killed(Exception):
@@ -1686,6 +1793,7 @@ def phase_failure(torch, kcommon, cfg, smi):
 
     def producers():
         w1 = session.writer("w0").__enter__()
+        events["killed"] = w1.producer.stats.metric_scope
         try:
             run_producer_loop(w1.producer, FUSED_BATCHES, 0, produce_delay_s=PRODUCE_DELAY_S,
                               payload_fn=first_payload)
@@ -1695,6 +1803,7 @@ def phase_failure(torch, kcommon, cfg, smi):
         time.sleep(RESTART_S)
         w2 = session.writer("w0").__enter__()   # recover() from the manifest
         events["recovered"] = (time.monotonic(), w2.recovered_offset)
+        events["replacement"] = w2.producer.stats.metric_scope
         run_producer_loop(w2.producer, FUSED_BATCHES - w2.recovered_offset, 0,
                           produce_delay_s=PRODUCE_DELAY_S, payload_fn=slices.__getitem__)
         events["done"] = time.monotonic()
@@ -1721,6 +1830,7 @@ def phase_failure(torch, kcommon, cfg, smi):
     if faults or seqs != list(range(FUSED_BATCHES)) or thread.is_alive():
         raise AssertionError(f"failure (b): the trainer did not run on exactly once past "
                              f"the producer kill: {faults[:3]}; seqs {seqs}")
+    say(f"(b) {postmortem(kill_store, 'runs/kill', events['killed'], events['replacement'])}")
 
     # -- (c) fig16's SlowDown storm over the middle third of the run -------------------------
     def resilient_config(seed):
@@ -1786,6 +1896,8 @@ def phase_failure(torch, kcommon, cfg, smi):
         prod._recorder.snap()
         snap = latest_snapshot(Namespace(inner, "runs/brownout"), scope)
     live = default_registry().snapshot(scope + ".")
+    top_c, store_row, cli_ms_c = store_row_from_storage(inner, "runs/brownout", session.store)
+    store_scope, cli_throttled = rs.metric_scope, store_row["metrics"].get("throttled")
     say(f"(c) brownout: storm [{third:.2f}, {2 * third:.2f}) s of a {wall:.2f} s run (the "
         f"fault-free run took {ref_wall:.2f} s); throttles seen {rs.throttled}, injected "
         f"{faulty.fault_stats.counts.get('throttled', 0)}, slow GETs "
@@ -1800,13 +1912,18 @@ def phase_failure(torch, kcommon, cfg, smi):
         f"{prod._recorder.dropped}; latest snapshot seq {snap and snap['seq']} from "
         f"runs/brownout/obs/ equals the live registry: {snap is not None and snap['metrics'] == live} "
         f"(tgbs_written {live.get(scope + '.tgbs_written')}, commit_successes "
-        f"{live.get(scope + '.commit_successes')}); case {case_s():.1f} s")
+        f"{live.get(scope + '.commit_successes')})")
+    say(f"(c) top over runs/brownout ({cli_ms_c[0]:.1f} ms; obs --json {cli_ms_c[1]:.1f} ms): "
+        f"{[line.strip() for line in top_c.splitlines()[2:]]}; obs --json {store_scope} "
+        f"throttled {cli_throttled}, the live registry's {rs.throttled}: "
+        f"{cli_throttled == rs.throttled} (breaker {store_row.get('breaker')}, hedge win rate "
+        f"{store_row.get('hedge_win_rate')}); case {case_s():.1f} s")
     session.close()
     if not same or rs.throttled <= 0 or thread.is_alive() or snap is None \
-            or snap["metrics"] != live:
+            or snap["metrics"] != live or cli_throttled != rs.throttled:
         raise AssertionError(f"failure (c): bit-identical {same}, throttles seen "
-                             f"{rs.throttled}, snapshot equals the registry "
-                             f"{snap is not None and snap['metrics'] == live}")
+                             f"{rs.throttled} ({cli_throttled} in obs --json), snapshot "
+                             f"equals the registry {snap is not None and snap['metrics'] == live}")
 
     launches = dict(kcommon.launches)
     bad = [i for i, n in enumerate(per_step) if n != want]
@@ -2175,6 +2292,33 @@ def phase_streams(torch, kcommon, cfg, smi):
         raise AssertionError("streams: fsck reports an error, or sees no derive cursor, or the "
                              "code stream's shard bases disagree with the segment")
 
+    # -- the operator CLI over this run's store: inspect, fsck, trim, fsck ------------------
+    from repro_torch.ops.cli import _print_fsck
+
+    cli_ms = {}
+    rc_i, out, cli_ms["inspect --json"] = run_ops(store, STREAMS_NS, "--json", "inspect")
+    inspect_same = json.loads(out) == json.loads(json.dumps(info))
+    rc_f, out, cli_ms["fsck --json"] = run_ops(store, STREAMS_NS, "--json", "fsck")
+    encoded = io.StringIO()
+    _print_fsck(report, True, encoded)
+    fsck_same = json.loads(out) == json.loads(encoded.getvalue())
+    rc_t, out, cli_ms["trim --ranks 2 --json"] = run_ops(store, STREAMS_NS, "--json", "trim",
+                                                         "--ranks", "2")
+    trimmed = json.loads(out)
+    rc_f2, out, cli_ms["fsck"] = run_ops(store, STREAMS_NS, "fsck")
+    say(f"ops CLI over this run's store ({len(store.list(STREAMS_NS))} objects, "
+        f"{store.total_bytes() / 1e9:.3f} GB): ms {({k: round(v, 3) for k, v in cli_ms.items()})}; "
+        f"exit codes inspect {rc_i}, fsck {rc_f}, trim {rc_t}, fsck after trim {rc_f2}; "
+        f"inspect --json equals inspect_run: {inspect_same}; fsck --json equals the encoding of "
+        f"this phase's fsck report: {fsck_same}; trim rows "
+        f"{[(r['stream'], r['advanced'], r['safe_step'], r['tgbs_deleted']) for r in trimmed]}; "
+        f"fsck after trim: {out.splitlines()[0]}")
+    if (rc_i, rc_f, rc_t, rc_f2) != (0, 0, 0, 0) or not inspect_same or not fsck_same \
+            or len(trimmed) != 1 + len(STREAM_WEIGHTS):
+        raise AssertionError(f"streams: the ops CLI over the run: exit codes "
+                             f"{(rc_i, rc_f, rc_t, rc_f2)}, inspect equal {inspect_same}, fsck "
+                             f"equal {fsck_same}, trim rows {len(trimmed)}")
+
     launches = dict(kcommon.launches)
     wrong = [i for i, n in enumerate(per_step) if n != want]
     say(f"launches over {len(per_step)} steps {launches}; a step {per_step[0]} (want {want}); "
@@ -2185,6 +2329,114 @@ def phase_streams(torch, kcommon, cfg, smi):
     del store
     gc.collect()
     return launches
+
+
+def phase_ops_chaos(smi):
+    """Phase 13: the chaos harness and the operator CLI through their entry
+    points, as subprocesses from the repository root: ``python -m
+    repro_torch.chaos --json`` at each seed of CHAOS_SEEDS (the last with
+    ``--trace``) and ``--list``; ``python -m repro_torch.ops`` over a
+    ``FileObjectStore`` run with a planted orphan. Host code: no tensor, no
+    kernel."""
+    import tempfile
+    import threading
+
+    from repro_torch.core import (FileObjectStore, ManifestStore, Namespace, Producer,
+                                  Watermark, write_watermark)
+
+    def say(msg):
+        log(f"ops/chaos: {msg}  [{smi}]")
+
+    t_phase = time.monotonic()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+    def module(*args, **kw):
+        return [sys.executable, "-m", *args], dict(cwd=ROOT, env=env, text=True, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "chaos-trace.json"
+        results, harness = {}, []
+
+        def chaos(seed, *extra):
+            argv, kw = module("repro_torch.chaos", "--json", "--seed", str(seed), *extra,
+                              capture_output=True, timeout=HOST_TIMEOUT_S)
+            t0 = time.monotonic()
+            res = subprocess.run(argv, **kw)
+            results[seed] = (res.returncode, json.loads(res.stdout) if res.stdout.strip() else [],
+                             res.stderr, time.monotonic() - t0)
+
+        try:
+            # (a) the chaos harness, both seeds at once, beside (b)
+            for seed in CHAOS_SEEDS:
+                extra = ["--trace", str(trace)] if seed == CHAOS_SEEDS[-1] else []
+                harness.append(threading.Thread(target=chaos, args=(seed, *extra)))
+                harness[-1].start()
+
+            # (b) the CLI over a FileObjectStore: tests/test_ops.py's file_run, a
+            # watermark for trim, and a crashed incarnation's orphan TGB
+            root = Path(tmp) / "store"
+            ns = Namespace(FileObjectStore(str(root)), "runs/job")
+            p = Producer(ns, "P", dp=1, cp=1, manifests=ManifestStore(ns))
+            for _ in range(4):
+                p.write_tgb(uniform_slice_bytes=64)
+                p.maybe_commit(force=True)
+            p.finalize()
+            write_watermark(ns, 0, Watermark(version=3, step=2))
+            orphan = ns.tgb_key("P", 1, "deadbeef")
+            ns.store.put(orphan, b"junk")
+            job = ["--root", str(root), "-n", "runs/job"]
+            commands = [
+                (job + ["--json", "fsck"], 1, lambda out: json.loads(out)["orphans"] == [orphan]),
+                (job + ["fsck", "--repair"], 1, lambda out: f"[repaired] deleted {orphan}" in out),
+                (job + ["fsck"], 0, lambda out: "clean" in out),
+                (job + ["inspect"], 0, lambda out: "total_steps=4" in out),
+                (job + ["trim", "--ranks", "1"], 0, lambda out: "safe_step=2" in out),
+                (job + ["top"], 0, lambda out: "frontier v3 total_steps=4" in out),
+                (["--root", str(Path(tmp) / "missing"), "-n", "runs/job", "fsck"], 2,
+                 lambda out: True),
+            ]
+            cli = []
+            for args, want_rc, check in commands:
+                argv, kw = module("repro_torch.ops", *args, capture_output=True,
+                                  timeout=HOST_TIMEOUT_S)
+                t0 = time.perf_counter()
+                res = subprocess.run(argv, **kw)
+                ms = (time.perf_counter() - t0) * 1e3
+                cli.append((" ".join(args).replace(tmp, "$TMP"), res.returncode, round(ms, 1)))
+                if res.returncode != want_rc or not check(res.stdout):
+                    raise AssertionError(f"ops/chaos (b): {args} exited {res.returncode} (want "
+                                         f"{want_rc}): {res.stdout[-400:]} {res.stderr[-400:]}")
+            say(f"(b) python -m repro_torch.ops over a FileObjectStore run with one orphan TGB: "
+                f"(command, exit code, ms) {cli}; exit codes "
+                f"{[c[1] for c in cli]}")
+            argv, kw = module("repro_torch.chaos", "--list", capture_output=True,
+                              timeout=HOST_TIMEOUT_S)
+            listed = subprocess.run(argv, **kw)
+            names = listed.stdout.split()
+            if listed.returncode != 0 or names != sorted(CHAOS_SCENARIOS):
+                raise AssertionError(f"ops/chaos (a): --list gave {listed.returncode} {names}")
+
+        finally:
+            for t in harness:   # each run ends by itself or at its timeout
+                t.join()
+        n_spans = len(json.loads(trace.read_text())["traceEvents"]) if trace.exists() else 0
+
+    bad = [f"seed {seed}: no result" for seed in CHAOS_SEEDS if seed not in results]
+    for seed, (rc, rows, err, wall) in sorted(results.items()):
+        passed = [r for r in rows if r["passed"] and r["fsck_clean_after"]]
+        counts = [(r["name"], r["steps_delivered"], r["orphans_detected"], r["faults_injected"],
+                   round(r["recovery_latency_s"] * 1e3, 2)) for r in rows]
+        say(f"(a) python -m repro_torch.chaos --json --seed {seed}: exit {rc}, "
+            f"{len(passed)} of {len(CHAOS_SCENARIOS)} scenarios passed with fsck clean after, "
+            f"{wall:.2f} s; (scenario, steps_delivered, orphans_detected, faults_injected, "
+            f"recovery ms) {counts}")
+        if rc != 0 or sorted(r["name"] for r in passed) != sorted(CHAOS_SCENARIOS):
+            failed = [(r["name"], r["detail"]) for r in rows if r not in passed]
+            bad.append(f"seed {seed}: exit {rc}, failed {failed} {err[-400:]}")
+    say(f"(a) --list: {len(names)} scenarios; --trace wrote {n_spans} spans; phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    if bad or n_spans <= 0:
+        raise AssertionError(f"ops/chaos (a): {bad}; trace spans {n_spans}")
 
 
 def phase_train_vs_plain(torch, label, cfg, control_name, control):
@@ -2271,7 +2523,7 @@ def main() -> int:
                     help="comma-separated kernel names: build and check only "
                          "these (phases 1-3) and skip the serving phases")
     ap.add_argument("--skip-serving", action="store_true",
-                    help="run phases 1-3 and the training phases 6-12 only")
+                    help="run phases 1-3 and the phases 6-13 only")
     args = ap.parse_args()
     import torch
 
@@ -2395,6 +2647,12 @@ def main() -> int:
     paths["granite-8b streams"] = phase_streams(torch, kcommon, cut, smi)
     free()
     done(12)
+
+    # -- 13. the chaos harness and the ops CLI's entry points (host code) ------------------
+    kcommon.reset_launches()
+    phase_ops_chaos(smi)
+    paths["ops and chaos (host)"] = dict(kcommon.launches)
+    done(13)
 
     # launches: each kernel's count on the serving path it was ported for
     # (granite-8b for K1-K3, rwkv6-3b for K4; their training paths with

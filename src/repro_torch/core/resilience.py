@@ -1,6 +1,7 @@
 """Brownout-resilient storage client: the layer between every component and
 the ``ObjectStore`` (port of ``repro.core.resilience``, copied as it is but
-for its imports).
+for its imports and one fix: a half-open probe that misses closes the
+breaker, ``CircuitBreaker.on_miss``).
 
 Real object stores do not fail in one flavor. They throttle (503 SlowDown
 with Retry-After), they brown out (windows of heavily inflated tail latency),
@@ -338,6 +339,19 @@ class CircuitBreaker:
                 self._cooldown_s = self.base_cooldown_s
                 self._set_state(BreakerState.CLOSED)
 
+    def on_miss(self) -> None:
+        """The store answered with a miss (no such key). A half-open probe
+        has its answer and closes the breaker; otherwise nothing changes.
+        The reference records nothing for a miss, so a probe that misses (a
+        reader polling for the next manifest) holds the breaker half-open
+        for good and every later call fails fast (ROADMAP Queue 3)."""
+        with self._lock:
+            if self._state == BreakerState.HALF_OPEN and self._probe_inflight:
+                self._failures = 0
+                self._probe_inflight = False
+                self._cooldown_s = self.base_cooldown_s
+                self._set_state(BreakerState.CLOSED)
+
     def on_failure(self) -> None:
         with self._lock:
             now = self.clock.now()
@@ -586,6 +600,10 @@ class ResilientStore(ObjectStore):
                 raise
             except TransientStoreError:
                 self._record_outcome(False)
+                raise
+            except KeyError:
+                self.breaker.on_miss()
+                r.breaker_state = self.breaker.state
                 raise
             self._record_outcome(True)
             return out

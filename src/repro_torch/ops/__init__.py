@@ -1,5 +1,5 @@
-"""``repro_torch.ops`` (port of ``repro.ops``) — the operator toolkit's
-integrity checker and run inspector.
+"""``repro_torch.ops`` (port of ``repro.ops``) — the ``batchweave`` operator
+toolkit.
 
 Programmatic API::
 
@@ -9,10 +9,18 @@ Programmatic API::
     report = fsck(Namespace(store, "runs/myjob"), repair=False)
     assert report.clean, report.summary()
 
-The reference's CLI (``ops/cli.py``) and its ``ops/obs.py`` are not ported
-yet: ROADMAP Queue 1, item 9.
+CLI (filesystem-backed stores)::
+
+    python -m repro_torch.ops --root /data/bw --namespace runs/myjob inspect
+    python -m repro_torch.ops --root /data/bw -n runs/myjob fsck --repair
+    python -m repro_torch.ops --root /data/bw -n runs/myjob trim --ranks 4
+
+Host code only: no command allocates a tensor or takes a device. See
+``docs/OPERATIONS.md`` for the full runbook.
 """
+from repro_torch.ops.cli import build_parser, main
 from repro_torch.ops.fsck import FsckIssue, FsckReport, fsck, list_streams
 from repro_torch.ops.inspect import inspect_run
 
-__all__ = ["FsckIssue", "FsckReport", "fsck", "inspect_run", "list_streams"]
+__all__ = ["FsckIssue", "FsckReport", "build_parser", "fsck", "inspect_run",
+           "list_streams", "main"]

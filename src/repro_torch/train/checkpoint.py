@@ -31,13 +31,18 @@ On restore the template gives only the structure — the recorded dtype and
 shape win — and each leaf lands on its template leaf's device; a numpy (or
 Python scalar) template leaf gives a numpy array, as the reference does
 without JAX.
+
+torch is imported only where a leaf is a tensor, so the host modules that
+import this one (the RunManifest, fsck, the ops CLI, the chaos harness and
+its numpy leaves) start without it.
 """
 from __future__ import annotations
 
+import functools
+import sys
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from repro_torch.core import _msgpack as msgpack
 from repro_torch.core.objectstore import Namespace, NoSuchKey
@@ -45,22 +50,33 @@ from repro_torch.core.objectstore import Namespace, NoSuchKey
 #: model-checkpoint MANIFEST schema tag (independent of the RunManifest's)
 CKPT_SCHEMA = 2
 
-#: the dtype names a leaf may carry, as numpy spells them, and their torch
-#: dtypes (numpy's names are the wire format: the reference writes
-#: ``str(np.asarray(leaf).dtype)``)
-_TORCH_DTYPES = {
-    "bool": torch.bool, "uint8": torch.uint8, "int8": torch.int8,
-    "int16": torch.int16, "int32": torch.int32, "int64": torch.int64,
-    "float16": torch.float16, "bfloat16": torch.bfloat16,
-    "float32": torch.float32, "float64": torch.float64,
-    "complex64": torch.complex64, "complex128": torch.complex128,
+#: the dtype names a leaf may carry, as numpy spells them (numpy's names
+#: are the wire format: the reference writes ``str(np.asarray(leaf).dtype)``;
+#: torch names each dtype the same), and their bytes per element
+_ITEMSIZE = {
+    "bool": 1, "uint8": 1, "int8": 1, "int16": 2, "int32": 4, "int64": 8,
+    "float16": 2, "bfloat16": 2, "float32": 4, "float64": 8,
+    "complex64": 8, "complex128": 16,
 }
-_DTYPE_NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
+
+
+@functools.cache
+def _torch_dtypes() -> Dict[str, Any]:
+    """Each dtype name of ``_ITEMSIZE`` to its torch dtype."""
+    import torch
+    return {name: getattr(torch, name) for name in _ITEMSIZE}
+
+
+def _is_tensor(x) -> bool:
+    """Whether ``x`` is a torch tensor; where torch is not loaded, nothing
+    is one."""
+    torch = sys.modules.get("torch")
+    return torch is not None and isinstance(x, torch.Tensor)
 
 
 def dtype_itemsize(name: str) -> int:
     """Bytes per element of a leaf dtype recorded in ``MANIFEST.ckpt``."""
-    return _TORCH_DTYPES[name].itemsize
+    return _ITEMSIZE[name]
 
 
 # ---------------------------------------------------------------------------
@@ -102,10 +118,11 @@ def _rebuild(node, it):
 
 def _leaf_bytes(leaf) -> Tuple[bytes, List[int], str]:
     """(raw little-endian bytes, shape, numpy dtype name) of one leaf."""
-    if isinstance(leaf, torch.Tensor):
+    if _is_tensor(leaf):
+        import torch
         t = leaf.detach().cpu().contiguous()
-        name = _DTYPE_NAMES.get(t.dtype)
-        if name is None:
+        name = str(t.dtype).removeprefix("torch.")
+        if name not in _ITEMSIZE:
             raise TypeError(f"no checkpoint dtype for a {t.dtype} leaf")
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)   # numpy has no bf16 without ml_dtypes
@@ -115,9 +132,9 @@ def _leaf_bytes(leaf) -> Tuple[bytes, List[int], str]:
     return arr.tobytes(), list(arr.shape), str(arr.dtype)
 
 
-def _as_tensor(buf: bytes, dtype_str: str, shape: List[int],
-               device: torch.device) -> torch.Tensor:
-    dt = _TORCH_DTYPES.get(dtype_str)
+def _as_tensor(buf: bytes, dtype_str: str, shape: List[int], device):
+    import torch
+    dt = _torch_dtypes().get(dtype_str)
     if dt is None:
         raise TypeError(f"checkpoint leaf dtype {dtype_str!r} has no torch "
                         f"dtype")
@@ -139,7 +156,7 @@ def _as_array(buf: bytes, dtype_str: str, shape: List[int]) -> np.ndarray:
 
 
 def _as_leaf(buf: bytes, entry: dict, like) -> Any:
-    if isinstance(like, torch.Tensor):
+    if _is_tensor(like):
         return _as_tensor(buf, entry["dtype"], entry["shape"], like.device)
     return _as_array(buf, entry["dtype"], entry["shape"])
 

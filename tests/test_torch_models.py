@@ -252,5 +252,51 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "repro_torch.dataplane.mq_backend",
             "repro_torch.dataplane.colocated_backend",
             "repro_torch.core.resilience", "repro_torch.obs.recorder",
-            "repro_torch.launch.roofline"} <= set(modules)
+            "repro_torch.launch.roofline", "repro_torch.ops.cli",
+            "repro_torch.ops.obs", "repro_torch.ops.__main__",
+            "repro_torch.chaos", "repro_torch.chaos.scenarios",
+            "repro_torch.chaos.__main__"} <= set(modules)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("argv,rc", [
+    (["repro_torch.chaos", "--only", "producer_precommit_kill", "--json"], 0),
+    (["repro_torch.ops", "--root", "<missing>", "-n", "x", "fsck"], 2),
+])
+def test_port_entry_points_run_with_the_jax_package_blocked(tmp_path, argv,
+                                                            rc):
+    """``python -m repro_torch.chaos`` and ``python -m repro_torch.ops`` run
+    to their exit codes with ``jax``, ``repro``, ``msgpack`` and
+    ``ml_dtypes`` made unimportable, and load none of them; being host
+    code, they do not load torch either."""
+    argv = [str(tmp_path / "missing") if a == "<missing>" else a
+            for a in argv]
+    code = (
+        "import importlib.abc, json, runpy, sys\n"
+        "BLOCKED = ('jax', 'repro', 'msgpack', 'ml_dtypes')\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"sys.argv = {argv!r}\n"
+        "try:\n"
+        "    runpy.run_module(sys.argv[0], run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    rc = e.code\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
+        "print(json.dumps({'rc': rc, 'bad': bad,\n"
+        "                  'torch': 'torch' in sys.modules}))\n")
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+        env={"PYTHONPATH": f"{ROOT / 'src'}", "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    doc = json.loads(out.stdout.strip().splitlines()[-1])
+    assert doc == {"rc": rc, "bad": [], "torch": False}
+    if rc == 0:
+        [result] = json.loads(out.stdout[:out.stdout.rindex("\n{")])
+        assert result["name"] == "producer_precommit_kill"
+        assert result["passed"] and result["fsck_clean_after"]
+    else:
+        assert "does not exist" in out.stderr

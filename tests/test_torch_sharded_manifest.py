@@ -768,3 +768,99 @@ def test_a_compact_segment_reads_back_in_the_other_package(folder):
                            min_fold=1).run_cycle(safe_step=18)["segment"] == 1
     cold = tcore.open_manifest_store(_twin_ns(folded, tcore))
     assert _ids(cold.load_view(cold.latest_version())) == ids
+
+
+# ---------------------------------------------------------------------------
+# fsck's composite cursor over a sharded stream (ROADMAP Queue 3)
+# ---------------------------------------------------------------------------
+
+def test_fsck_flags_a_trim_past_a_composite_cursor_below_a_fold():
+    """The port takes a sharded stream's retained range as ``[0, head]``,
+    so only the stream's trim marker can tell fsck that a composite cursor
+    no longer restores. A mix of a flat and a 4-shard stream checkpoints at
+    step 4, the head moves on, and (a) a compactor cycle folds the sharded
+    stream past the cursor's stream step, with its shard trims: fsck is
+    clean and rightly so, as the resume replays the next steps byte for
+    byte. Then (b) a reclaim cycle over watermarks past the checkpoint
+    (what ``trim`` runs) trims past the cursor: fsck flags ``trim-skew``
+    on that stream, and the resume indeed finds its batches gone."""
+    import numpy as np
+
+    from repro_torch.core import NoSuchKey, Producer, read_trim_marker
+    from repro_torch.dataplane import Topology
+    from repro_torch.dataplane.types import Checkpoint
+    from repro_torch.run import TrainSession
+
+    store = MemoryObjectStore(latency=ZERO_LATENCY)
+    ns = Namespace(store, "runs/foldtrim")
+    topo = Topology(dp=2, cp=1, global_batch=4, seq_len=8)
+
+    def publish(n):
+        for name, pids, shards in (("web", ["W"], None),
+                                   ("code", ["C0", "C1"], 4)):
+            sns = ns.stream(name)
+            prods = []
+            for pid in pids:
+                kw = {"manifests": open_manifest_store(sns, shards=shards)} \
+                    if shards else {}
+                prods.append(Producer(sns, pid, dp=2, cp=1, **kw))
+                prods[-1].recover()
+            for i in range(n):
+                p = prods[i % len(prods)]
+                tag = f"{name}/{p.producer_id}/{p.next_offset}"
+                p.write_tgb(slice_payloads={
+                    (d, 0): f"{tag}/{d}".encode().ljust(64, b".")
+                    for d in range(2)})
+                p.maybe_commit(force=True)
+            for p in prods:
+                p.finalize()
+
+    def steps(readers, n):
+        return [[(b.stream, b.step, bytes(b.payload))
+                 for b in (r.next_batch(timeout_s=5) for r in readers)]
+                for _ in range(n)]
+
+    def cursors(token):
+        rows = Checkpoint.coerce(token).streams
+        return {name: (v, s) for name, v, s in rows}
+
+    publish(8)
+    train = TrainSession(store, topo, namespace=ns.prefix,
+                         streams={"web": 0.5, "code": 0.5}, mix_seed=3)
+    readers = [train.reader(dp_rank=d) for d in range(2)]
+    steps(readers, 4)
+    entry = train.checkpoint({"w": np.ones(3, np.float32)})
+    train.reclaim()
+    publish(8)
+    after = steps(readers, 6)
+    cursor = cursors(entry.data_token)["code"]
+    later = cursors(readers[0].checkpoint())["code"]
+    code = ns.stream("code")
+    assert read_shard_config(code) == 4
+    assert cursor[0] < open_manifest_store(code).latest_version()
+    assert later[1] > cursor[1]
+
+    # (a) a fold past the cursor: clean, and the resume replays exactly
+    comp = Compactor(code, open_manifest_store(code), min_fold=1)
+    assert comp.run_cycle(safe_step=later[1])["folded"] > cursor[1]
+    assert comp.stats.trim_commits > 0
+    assert fsck(ns).clean
+    resumed = TrainSession.resume(store, ns.prefix)
+    assert steps([resumed.reader(dp_rank=d) for d in range(2)], 6) == after
+    restored = resumed.restore_model({"w": np.zeros(3, np.float32)})
+    assert restored["w"].tolist() == [1.0, 1.0, 1.0]
+    resumed.close()
+
+    # (b) a trim past the cursor: flagged, and the restore would fail
+    for rank, r in enumerate(readers):
+        train.data.save_watermark(rank, r.checkpoint())
+    train.close()
+    Reclaimer(code).run_cycle()
+    assert read_trim_marker(code)[0] == later[1]
+    issues = fsck(ns).all_issues()
+    assert [(i.severity, i.kind) for i in issues] == [("error", "trim-skew")]
+    assert "'code'" in issues[0].detail
+    gone = TrainSession.resume(store, ns.prefix)
+    with pytest.raises(NoSuchKey):
+        steps([gone.reader(dp_rank=d) for d in range(2)], 6)
+    gone.close()
