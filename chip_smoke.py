@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            (from the repository root, one CUDA card)
     python3 chip_smoke.py --kernels rmsnorm,wkv6   (phases 1-3 for those only)
-    python3 chip_smoke.py --skip-serving           (phases 1-3 and 6-13)
+    python3 chip_smoke.py --skip-serving           (phases 1-3, 6-13 and 14 (b, c))
+    python3 chip_smoke.py --only-moe               (phases 1-3 and 14)
 
 Phases, each of which raises (exit code != 0) on failure:
 
@@ -12,8 +13,11 @@ Phases, each of which raises (exit code != 0) on failure:
    one compiler per source, all started together; ptxas's register, shared
    memory and spill report per kernel.
 3. Kernels against their plain PyTorch versions on the card, in bf16, at the
-   serving paths' shapes (RMSNorm at both models' widths, 4096 and 2560)
-   plus a ragged and a tiny case each: max |err| and
+   serving paths' shapes (RMSNorm at both models' widths, 4096 and 2560,
+   and the MoE models' 2048; K1 and K3 also at deepseek-moe-16b's serving
+   shapes, 16 heads over 16 KV heads, timed, and K1 at qwen3-vl-30b-a3b's
+   training sequence, 32 heads over 4) plus a ragged and a tiny case each:
+   max |err| and
    the worst element's share of its limit (one bf16 ulp of the value plus
    1-2% of its output vector's RMS; see KERNEL_RTOL), with a one-key fault that the
    check must refuse for each attention kernel and two for WKV6 (u zeroed:
@@ -26,7 +30,8 @@ Phases, each of which raises (exit code != 0) on failure:
 4. Serving at full width: granite-8b (36 layers, d_model 4096) with random
    weights from a seeded torch generator, cast once to bf16, serves 8
    requests of 1000-token prompts, 32 new tokens each, through
-   ``ServeEngine.run_batch``. Launch counts are reset just before and read
+   ``ServeEngine.run_batch`` (the weights drawn leaf by leaf, each cast as
+   it is drawn). Launch counts are reset just before and read
    just after: 73 RMSNorm + 36 flash-attention launches per prefill, 73
    RMSNorm + 36 flash-decode launches per decode step. Then torch.profiler
    reads the device-busy share of one prefill and of 8 decode steps, and a
@@ -186,6 +191,26 @@ Phases, each of which raises (exit code != 0) on failure:
    ``fsck --repair`` 1, ``fsck`` 0, ``inspect``, ``trim``, ``top`` 0, and a
    ``--root`` that does not exist 2, each command's ms printed.
 
+14. The MoE family and the vision prefix. (a) deepseek-moe-16b (28 layers,
+   d_model 2048, 64 routed experts top-6 and 2 shared, 16 heads of 128 over
+   16 KV heads) served as phase 4 serves granite-8b (skipped under
+   ``--skip-serving``): the weights drawn leaf by leaf on the card and each
+   cast to bf16 as it is drawn (the whole fp32 tree, 62.9 GiB, beside its
+   bf16 copy would not fit); 57 RMSNorm + 28 flash-attention launches per
+   prefill, 57 RMSNorm + 28 flash-decode per decode step; each layer's share
+   of dropped choices in a prefill (capacity 940 a expert; a decode step's
+   is 4); the profile; the 2-layer cut, kernels vs plain, with the plain
+   path replaying the kernel path's routing (``RoutingReplay``; routing is
+   discontinuous, and a near-tied choice tipped by bf16 rounding would move
+   whole FFN outputs) and the choices it would have made otherwise printed.
+   (b) qwen3-vl-30b-a3b, the paper's own training target, cut to 4 of its
+   48 layers at full width (32 heads of 128 over 4 KV heads, 128 experts
+   top-8): 3 AdamW steps as phase 6 on 4 x 1024 tokens after 128 seeded fp32
+   frame embeddings a row (the reference's prefix length for S 1024),
+   1152 positions; loss, aux loss, launches, the profile. (c) Its 2-layer
+   cut's train step, kernels vs plain under the kernel path's routing, with
+   phase 8's K1 control refused.
+
 The last lines are the ``nvidia-smi`` name/power-limit line as it prints
 it, one JSON object with every kernel's numbers, and ``{"ok": true,
 "device": {...}}``. A kernel's ``launches`` is its count on the serving path
@@ -193,7 +218,8 @@ it was ported for (granite-8b for RMSNorm and both attention kernels,
 rwkv6-3b for WKV6); ``launches_by_path`` gives each path's count, the
 training paths' over their 3 steps, the fused path's over its 53, the
 resume path's over its 11, the failure path's over its steps, the streams
-path's over its 22, and phase 13's host path's (none).
+path's over its 22, phase 13's host path's (none), and phase 14's serving
+and training paths'.
 """
 from __future__ import annotations
 
@@ -313,6 +339,13 @@ CHAOS_SCENARIOS = (           # src/repro_torch/chaos/scenarios.py's registry
     "producer_precommit_kill", "reclaimer_midtrim_kill", "shard_conflict_storm",
     "store_outage_resume", "trainer_midcheckpoint_kill")
 HOST_TIMEOUT_S = 300          # a subprocess of phase 13
+# phase 14: the MoE family and the vision prefix. deepseek-moe-16b serves at
+# full width and depth with phase 4's settings; qwen3-vl-30b-a3b trains as a
+# full-width cut (all 48 layers' fp32 state would take 489 GB) on phase 6's
+# batch after a prefix of frame embeddings, the reference's
+# max(16, min(256, S // 8)) positions (src/repro/train/step.py:51-52)
+VL_TRAIN_LAYERS = 4           # of 48: 3.115 B parameters, 46.4 GiB of fp32 state
+VL_PREFIX = max(16, min(256, TRAIN_SEQ // 8))
 # the forward kernels' names as the profiler lists them
 KERNEL_SYMBOLS = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "fa_fwd_kernel",
                   "decode_attention": "decode_kernel", "wkv6": "wkv6_kernel"}
@@ -512,7 +545,9 @@ def kernel_rmsnorm(torch, F, flush, randn, entries):
     for label, rows, dim in (("prefill", BATCH * PROMPT, 4096), ("decode", BATCH, 4096),
                              ("ragged", 1001, 4096), ("rwkv prefill", BATCH * PROMPT, 2560),
                              ("rwkv decode", BATCH, 2560), ("tiny", 3, 64),
-                             ("train", train_rows, 4096), ("rwkv train", train_rows, 2560)):
+                             ("train", train_rows, 4096), ("rwkv train", train_rows, 2560),
+                             ("moe prefill", BATCH * PROMPT, 2048),
+                             ("vl train", TRAIN_GB * (TRAIN_SEQ + VL_PREFIX), 2048)):
         x, w = randn(rows, dim), randn(dim, dtype=torch.float32)
         err, share = check_kernel(torch, f"rmsnorm {label}", rmsnorm(x, w),
                                   rmsnorm_ref(x, w))
@@ -550,8 +585,10 @@ def kernel_rmsnorm(torch, F, flush, randn, entries):
 
 
 def kernel_flash_attention(torch, F, flush, randn, entries):
-    """K1 flash attention at granite-8b's prefill and training shapes.
-    Timed through the launcher ``flash_attention_fwd``."""
+    """K1 flash attention at granite-8b's prefill and training shapes,
+    deepseek-moe-16b's prefill (rep 1) and qwen3-vl-30b-a3b's training
+    sequence after its prefix (rep 8). Timed through the launcher
+    ``flash_attention_fwd``."""
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          flash_attention_fwd)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -559,6 +596,8 @@ def kernel_flash_attention(torch, F, flush, randn, entries):
     for label, (B, S, H, G, dh, causal) in (
             ("prefill", (BATCH, PROMPT, 32, 8, 128, True)),
             ("train", (TRAIN_GB, TRAIN_SEQ, 32, 8, 128, True)),
+            ("moe prefill", (BATCH, PROMPT, 16, 16, 128, True)),
+            ("vl train", (TRAIN_GB, TRAIN_SEQ + VL_PREFIX, 32, 4, 128, True)),
             ("ragged", (2, 45, 4, 2, 128, True)),
             ("full", (2, 100, 6, 3, 64, False)),
             ("tiny", (1, 5, 2, 1, 64, True))):
@@ -568,7 +607,7 @@ def kernel_flash_attention(torch, F, flush, randn, entries):
                                   flash_attention_ref(q, k, v, causal))
         line = (f"flash_attention {label} q{(B, S, H, dh)} kv{(B, S, G, dh)}: "
                 f"max|err| {err:.3e} ({share:.2f} of limit)")
-        if label == "prefill":
+        if label in ("prefill", "moe prefill"):
             ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal), flush, 20)
             plain = time_ms(torch, lambda: flash_attention_ref(q, k, v, causal), flush, 5)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -580,13 +619,20 @@ def kernel_flash_attention(torch, F, flush, randn, entries):
             b_ms, b_by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
             line += (f"  kernel {ms:.4f} ms  plain {plain:.4f} ms  sdpa {lib:.4f} ms  "
                      f"bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP)")
-            entries["flash_attention"] = dict(
-                name="flash_attention", route="cuda",
-                source="src/repro_torch/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention/kernel.py:29",
-                shape=f"q ({B}, {S}, {H}, {dh}) kv ({B}, {S}, {G}, {dh}) bf16 causal",
-                max_abs_err=err, max_err_share_of_limit=share, ms=ms,
-                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+            if label == "prefill":
+                entries["flash_attention"] = dict(
+                    name="flash_attention", route="cuda",
+                    source="src/repro_torch/csrc/flash_attention.cu",
+                    replaces="src/repro/kernels/flash_attention/kernel.py:29",
+                    shape=f"q ({B}, {S}, {H}, {dh}) kv ({B}, {S}, {G}, {dh}) bf16 causal",
+                    max_abs_err=err, max_err_share_of_limit=share, ms=ms,
+                    plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+            else:  # deepseek-moe-16b's prefill, beside granite-8b's
+                entries["flash_attention"].update(
+                    moe_prefill_shape=f"q ({B}, {S}, {H}, {dh}) kv ({B}, {S}, {G}, {dh})",
+                    moe_prefill_ms=ms, moe_prefill_plain_ms=plain,
+                    moe_prefill_library_ms=lib, moe_prefill_bound_ms=b_ms,
+                    moe_prefill_max_err_share_of_limit=share)
         log(line)
         if label == "prefill":  # one key's value lost: only the last row sees it
             v_bad = v.clone()
@@ -597,7 +643,8 @@ def kernel_flash_attention(torch, F, flush, randn, entries):
 
 
 def kernel_decode_attention(torch, F, flush, randn, entries):
-    """K3 flash decode at granite-8b's decode shape."""
+    """K3 flash decode at granite-8b's and deepseek-moe-16b's (rep 1)
+    decode shapes."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
@@ -605,6 +652,8 @@ def kernel_decode_attention(torch, F, flush, randn, entries):
     for label, (B, H, G, dh, T, cur) in (
             ("decode", (BATCH, 32, 8, 128, MAX_SEQ, cur_main)),
             ("tail", (BATCH, 32, 8, 128, MAX_SEQ, MAX_SEQ - 1)),
+            ("moe decode", (BATCH, 16, 16, 128, MAX_SEQ, cur_main)),
+            ("moe tail", (BATCH, 16, 16, 128, MAX_SEQ, MAX_SEQ - 1)),
             ("ragged", (3, 6, 3, 64, 100, 70)),
             ("tiny", (1, 8, 1, 64, 5, 0))):
         q, kc, vc = randn(B, H, dh), randn(B, T, G, dh), randn(B, T, G, dh)
@@ -613,7 +662,7 @@ def kernel_decode_attention(torch, F, flush, randn, entries):
                                   decode_attention_ref(q, kc, vc, cur))
         line = (f"decode_attention {label} q{(B, H, dh)} cache{(B, T, G, dh)} cur {cur}: "
                 f"max|err| {err:.3e} ({share:.2f} of limit)")
-        if label == "decode":
+        if label in ("decode", "moe decode"):
             ms = time_ms(torch, lambda: decode_attention(q, kc, vc, cur), flush, 50)
             plain = time_ms(torch, lambda: decode_attention_ref(q, kc, vc, cur), flush, 20)
             qs = q[:, :, None]
@@ -626,13 +675,20 @@ def kernel_decode_attention(torch, F, flush, randn, entries):
             b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
             line += (f"  kernel {ms:.4f} ms  plain {plain:.4f} ms  sdpa {lib:.4f} ms  "
                      f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
-            entries["decode_attention"] = dict(
-                name="decode_attention", route="cuda",
-                source="src/repro_torch/csrc/decode_attention.cu",
-                replaces="src/repro/kernels/decode_attention/kernel.py:34",
-                shape=f"q ({B}, {H}, {dh}) cache ({B}, {T}, {G}, {dh}) bf16 cur_index {cur}",
-                max_abs_err=err, max_err_share_of_limit=share, ms=ms,
-                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+            if label == "decode":
+                entries["decode_attention"] = dict(
+                    name="decode_attention", route="cuda",
+                    source="src/repro_torch/csrc/decode_attention.cu",
+                    replaces="src/repro/kernels/decode_attention/kernel.py:34",
+                    shape=f"q ({B}, {H}, {dh}) cache ({B}, {T}, {G}, {dh}) bf16 cur_index {cur}",
+                    max_abs_err=err, max_err_share_of_limit=share, ms=ms,
+                    plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+            else:  # deepseek-moe-16b's decode, beside granite-8b's
+                entries["decode_attention"].update(
+                    moe_decode_shape=f"q ({B}, {H}, {dh}) cache ({B}, {T}, {G}, {dh})",
+                    moe_decode_ms=ms, moe_decode_plain_ms=plain,
+                    moe_decode_library_ms=lib, moe_decode_bound_ms=b_ms,
+                    moe_decode_max_err_share_of_limit=share)
         log(line)
         if label == "decode":  # the newest key left out of the kernel's range
             check_rejects(torch, "decode_attention decode, newest key dropped",
@@ -702,23 +758,45 @@ KERNEL_PHASES = {"rmsnorm": kernel_rmsnorm, "flash_attention": kernel_flash_atte
           "decode_attention": kernel_decode_attention, "wkv6": kernel_wkv6}
 
 
-def phase_serve(torch, kcommon):
-    """Full-width granite-8b serving; returns (engine, launches)."""
+def serving_weights(torch, cfg):
+    """``serving_params(cfg, init_params(param_specs(cfg), seed=SEED))`` on
+    the card, built leaf by leaf: each leaf the engine casts is cast as soon
+    as it is drawn, so the whole fp32 tree never exists beside its bf16
+    copy (deepseek-moe-16b's would be 62.9 GiB). The same generator stream
+    and order as ``init_params``, so the same bits."""
+    from repro_torch.models import param_specs
+    from repro_torch.models.common import init_param
+    from repro_torch.serve.engine import _CAST_ON_LOAD
+
+    cast = _CAST_ON_LOAD[cfg.family]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+
+    def build(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: build(tree[k], k) for k in sorted(tree)}
+        leaf = init_param(tree, gen, torch.device("cuda"))
+        return leaf.to(cfg.cdtype) if name in cast else leaf
+
+    with torch.inference_mode():
+        return build(param_specs(cfg))
+
+
+def phase_serve(torch, kcommon, cfg):
+    """Full-width serving of ``cfg`` through ``ServeEngine``; returns
+    (engine, launches)."""
     import numpy as np
 
-    from repro_torch.configs.registry import get_config
-    from repro_torch.models import init_params, param_specs
     from repro_torch.serve.engine import Request, ServeEngine
 
-    cfg = get_config("granite_8b")
     t0 = time.monotonic()
-    params = init_params(param_specs(cfg), seed=SEED, device="cuda")
-    engine = ServeEngine(cfg, params, max_seq=MAX_SEQ, device="cuda")
-    del params  # the engine holds the bf16 copies of the matrices
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServeEngine(cfg, serving_weights(torch, cfg), max_seq=MAX_SEQ, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    log(f"granite-8b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.param_count() / 1e9:.3f} B params; init + cast {time.monotonic() - t0:.1f} s")
+    log(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.param_count() / 1e9:.3f} B params; init + cast {time.monotonic() - t0:.1f} s, "
+        f"peak while building {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     rng = np.random.default_rng(SEED)
 
@@ -746,14 +824,45 @@ def phase_serve(torch, kcommon):
             "flash_attention": cfg.num_layers,
             "decode_attention": cfg.num_layers * steps, "wkv6": 0}
     if steps != NEW_TOKENS - 1 or launches != want:
-        raise AssertionError(f"launch counts {launches} (decode steps {steps}), want {want}")
-    log(f"serve: batch {BATCH} x prompt {PROMPT}, {NEW_TOKENS} new tokens each: "
+        raise AssertionError(f"{cfg.name}: launch counts {launches} (decode steps {steps}), "
+                             f"want {want}")
+    log(f"{cfg.name} serve: batch {BATCH} x prompt {PROMPT}, {NEW_TOKENS} new tokens each: "
         f"prefill {prefill_s * 1e3:.2f} ms; decode {steps} steps in {decode_s * 1e3:.2f} ms "
         f"({decode_s / steps * 1e3:.3f} ms/step, {tokens / decode_s:.1f} tokens/s "
         f"as tokens_out / wall_decode_s); max_memory_allocated {peak / 2**30:.2f} GiB")
-    log(f"serve launches: {launches} (expected {want})")
-    log(f"serve sample: request 0 generated {reqs[0].generated[:8]} ...")
+    log(f"{cfg.name} serve launches: {launches} (expected {want})")
+    log(f"{cfg.name} serve sample: request 0 generated {reqs[0].generated[:8]} ...")
     return engine, launches
+
+
+def phase_drops(torch, cfg, params):
+    """Each MoE layer's share of dropped choices (past its expert's
+    capacity) in one prefill of BATCH x PROMPT tokens."""
+    import numpy as np
+
+    from repro_torch.models import init_decode_state, moe, prefill
+
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, PROMPT))).cuda()
+    shares = []
+
+    def recording(routing):
+        def run(cfg_, p, xt):
+            out = routing(cfg_, p, xt)
+            shares.append((~out[5]).float().mean())
+            return out
+        return run
+
+    with torch.inference_mode(), swapped(moe, "_routing", recording):
+        prefill(cfg, params, {"tokens": tokens},
+                cache=init_decode_state(cfg, BATCH, MAX_SEQ, device="cuda"))
+    shares = [float(x) for x in shares]
+    if len(shares) != cfg.num_layers:
+        raise AssertionError(f"{cfg.name}: {len(shares)} routing calls in a prefill")
+    log(f"{cfg.name} prefill of {BATCH} x {PROMPT} tokens, capacity "
+        f"{moe.capacity(cfg, BATCH * PROMPT)} a expert: dropped share of the "
+        f"{cfg.moe_top_k} choices a token, by layer: {[f'{x:.4f}' for x in shares]} "
+        f"(mean {statistics.mean(shares):.4f})")
 
 
 def phase_serve_rwkv(torch, kcommon):
@@ -909,8 +1018,61 @@ def plain_path():
             setattr(mod, name, fn)
 
 
+class RoutingReplay:
+    """A swap of the port's MoE routing (a comparison device of this script
+    only): while ``recording``, each call's top-k choices are kept; after,
+    each call takes the next kept choices in call order, with its own
+    probabilities, gates and dispatch (``moe.plan``), and counts the
+    choices it would have made otherwise. Routing is discontinuous: the
+    kernel path's bf16 hidden states can tip a near-tied choice, and through
+    capacity move another token's, so kernels-vs-plain compares the kernels
+    under one routing."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe
+
+        self.torch, self.moe = torch, moe
+        self.recording, self.kept, self.flips, self.at = True, [], [], 0
+
+    def _routing(self, routing):
+        moe = self.moe
+
+        def run(cfg, p, xt):
+            if self.recording:
+                out = routing(cfg, p, xt)
+                self.kept.append(out[2])
+                return out
+            probs = moe.router_probs(p, xt)
+            want = self.kept[self.at]
+            self.at += 1
+            self.flips.append(int((moe.top_k(probs, cfg.moe_top_k)[1] != want).sum()))
+            return moe.plan(cfg, probs, want)
+        return run
+
+    @contextlib.contextmanager
+    def replaying(self):
+        """The replay (or, before any call was kept, nothing: the dense and
+        RWKV families route nothing) from the first kept call on."""
+        self.recording, self.at, self.flips = False, 0, []
+        try:
+            yield
+        finally:
+            if self.at != len(self.kept):
+                raise AssertionError(f"routing replay: {self.at} calls replayed of "
+                                     f"{len(self.kept)} kept")
+
+    def __enter__(self):
+        self._swap = swapped(self.moe, "_routing", self._routing)
+        self._swap.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._swap.__exit__(*exc)
+
+
 def phase_kernel_vs_plain(torch, name, cfg, params):
-    """2-layer cut at full width: kernel path vs plain path on the card."""
+    """2-layer cut at full width: kernel path vs plain path on the card
+    (the MoE family under the kernel path's routing, ``RoutingReplay``)."""
     import numpy as np
 
     from repro_torch.models import decode_step, init_decode_state, prefill
@@ -935,9 +1097,15 @@ def phase_kernel_vs_plain(torch, name, cfg, params):
         feed = [torch.argmax(kernel[0], -1)]
         for _ in range(2):
             feed.append((feed[-1] * 7 + 1) % cfg.vocab_size)
-        kernel = run()
-        with plain_path():
-            plain = run()
+        with RoutingReplay(torch) as replay:
+            kernel = run()
+            with replay.replaying(), plain_path():
+                plain = run()
+    if replay.kept:
+        log(f"{name} 2-layer cut: the plain path replays the kernel path's routing "
+            f"({len(replay.kept)} calls: prefill, then each decode step, layer by layer); "
+            f"choices it would have made otherwise, per call: {replay.flips} of "
+            f"{[int(k.numel()) for k in replay.kept]}")
     steps = ["prefill logits"] + [f"decode step {i} logits" for i in range(1, len(kernel))]
     rows = [read_close(torch, f"{name} 2-layer {step}", a, b)
             for step, a, b in zip(steps, kernel, plain)]
@@ -1017,14 +1185,32 @@ def timed_rules(torch):
         yield events
 
 
-def phase_train(torch, kcommon, label, cfg):
-    """Full-width training: TRAIN_STEPS AdamW steps on one batch, then one
-    profiled step. Returns the launches of the TRAIN_STEPS steps and each
-    step's wall ms."""
+def train_batch(torch, cfg, prefix=0, seed=SEED):
+    """Seeded TRAIN_GB x TRAIN_SEQ tokens and, with ``prefix``, seeded fp32
+    frame embeddings (TRAIN_GB, prefix, d_model) before them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (TRAIN_GB, TRAIN_SEQ))).cuda()}
+    if prefix:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed + 3)
+        batch["frontend_embeds"] = torch.randn((TRAIN_GB, prefix, cfg.d_model),
+                                               generator=gen, device="cuda")
+    return batch
+
+
+def phase_train(torch, kcommon, label, cfg, prefix=0):
+    """Full-width training: TRAIN_STEPS AdamW steps on one batch (after
+    ``prefix`` frame embeddings a row, if any), then one profiled step.
+    Returns the launches of the TRAIN_STEPS steps and each step's wall
+    ms."""
     import numpy as np
 
     from repro_torch.models import init_params, param_specs
     from repro_torch.models.common import tree_leaves
+    from repro_torch.models.moe import capacity as moe_capacity
     from repro_torch.train import (OptimizerConfig, StepConfig, init_opt_state,
                                    make_train_step)
 
@@ -1036,9 +1222,11 @@ def phase_train(torch, kcommon, label, cfg):
     log(f"{label} train: {cfg.num_layers} layers, d_model {cfg.d_model}, {n / 1e9:.3f} B "
         f"params; fp32 params, grads, m and v {16 * n / 1e9:.1f} GB; init "
         f"{time.monotonic() - t0:.1f} s")
-    rng = np.random.default_rng(SEED)
-    batch = {"tokens": torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (TRAIN_GB, TRAIN_SEQ))).cuda()}
+    batch = train_batch(torch, cfg, prefix)
+    if prefix:
+        log(f"{label} train: {TRAIN_GB} x {TRAIN_SEQ} tokens after a prefix of {prefix} "
+            f"frame embeddings a row (fp32, seeded): {TRAIN_SEQ + prefix} positions; "
+            f"MoE capacity {moe_capacity(cfg, TRAIN_GB * (TRAIN_SEQ + prefix))} a expert")
     step = make_train_step(cfg, OptimizerConfig(**TRAIN_OPT), StepConfig(microbatches=1))
     samples = [p.view(-1)[:4096].clone() for p in tree_leaves(params)]
     want = expected_train_launches(cfg)
@@ -1058,9 +1246,9 @@ def phase_train(torch, kcommon, label, cfg):
         before = now
         m = {k: float(v) for k, v in metrics.items()}
         readings.append((m, per_step, wall * 1e3))
-        log(f"{label} train step {i + 1}: loss {m['loss']:.6f}  grad_norm {m['grad_norm']:.6f}"
-            f"  lr {m['lr']:.3e}  {wall * 1e3:.2f} ms  {tokens / wall:.1f} tokens/s  "
-            f"launches {per_step}")
+        log(f"{label} train step {i + 1}: loss {m['loss']:.6f}  aux_loss {m['aux_loss']:.6f}"
+            f"  grad_norm {m['grad_norm']:.6f}  lr {m['lr']:.3e}  {wall * 1e3:.2f} ms  "
+            f"{tokens / wall:.1f} tokens/s  launches {per_step}")
     launches = dict(kcommon.launches)
     peak = torch.cuda.max_memory_allocated()
     moved = sum(bool((p.view(-1)[:4096] != s).any())
@@ -1089,11 +1277,12 @@ def phase_train(torch, kcommon, label, cfg):
         + "; ".join(f"{k} {v:.2f} ms = {v / step_ms:.1%}" for k, v in parts.items()))
 
     bad = [i + 1 for i, (m, per_step, _) in enumerate(readings)
-           if per_step != want or not all(np.isfinite([m["loss"], m["grad_norm"]]))]
+           if per_step != want or not all(np.isfinite([m["loss"], m["grad_norm"]]))
+           or (m["aux_loss"] > 0) != (cfg.family == "moe")]
     if bad or moved != len(samples):
-        raise AssertionError(f"{label} train: steps {bad} have non-finite loss or grad norm "
-                             f"or launches other than {want}; {moved} of {len(samples)} "
-                             f"leaves moved")
+        raise AssertionError(f"{label} train: steps {bad} have non-finite loss or grad norm, "
+                             f"an aux loss its family does not give, or launches other "
+                             f"than {want}; {moved} of {len(samples)} leaves moved")
     return launches, [ms for _, _, ms in readings]
 
 
@@ -2439,29 +2628,35 @@ def phase_ops_chaos(smi):
         raise AssertionError(f"ops/chaos (a): {bad}; trace spans {n_spans}")
 
 
-def phase_train_vs_plain(torch, label, cfg, control_name, control):
+def phase_train_vs_plain(torch, label, cfg, control_name, control, prefix=0):
     """A 2-layer full-width cut: one train step's loss, gradients and grad
-    norm, kernel path against plain path, and a negative control that must
-    be refused."""
-    import numpy as np
-
+    norm, kernel path against plain path (the MoE family under the kernel
+    path's routing, ``RoutingReplay``), and a negative control that must be
+    refused."""
     from repro_torch.models import init_params, param_specs
     from repro_torch.models.common import tree_leaves
     from repro_torch.train import global_norm, loss_and_grads
 
     cfg = cfg.replace(num_layers=2)
     params = init_params(param_specs(cfg), seed=SEED + 2, device="cuda")
-    rng = np.random.default_rng(SEED + 1)
-    batch = {"tokens": torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (TRAIN_GB, TRAIN_SEQ))).cuda()}
+    batch = train_batch(torch, cfg, prefix, seed=SEED + 1)
     names = leaf_paths(params)
 
     def run():
         loss, _, grads = loss_and_grads(cfg, params, batch)
         return float(loss), tree_leaves(grads), float(global_norm(grads))
 
-    with plain_path():
-        p_loss, p_grads, p_norm = run()
+    with RoutingReplay(torch) as replay:
+        kernel = run()
+        with replay.replaying(), plain_path():
+            p_loss, p_grads, p_norm = run()
+        if replay.kept:
+            log(f"{label} 2-layer train step: the plain path replays the kernel path's "
+                f"routing ({len(replay.kept)} calls: each layer's forward, then its "
+                f"recompute in the backward); choices it would have made otherwise, per "
+                f"call: {replay.flips} of {[int(k.numel()) for k in replay.kept]}")
+        with replay.replaying(), control():
+            control_run = run()
 
     def readings(tag, got):
         loss, grads, gnorm = got
@@ -2484,9 +2679,8 @@ def phase_train_vs_plain(torch, label, cfg, control_name, control):
         return (loss_rel <= TRAIN_LOSS_RTOL and norm_rel <= GRAD_NORM_RTOL
                 and worst <= GRAD_RMS_TOL)
 
-    kernel_ok = readings("kernels", run())
-    with control():
-        control_ok = readings(f"control ({control_name})", run())
+    kernel_ok = readings("kernels", kernel)
+    control_ok = readings(f"control ({control_name})", control_run)
     if not kernel_ok or control_ok:  # every reading is printed first
         raise AssertionError(f"{label} 2-layer train step: kernels within bounds {kernel_ok}, "
                              f"control ({control_name}) within bounds {control_ok}")
@@ -2523,7 +2717,9 @@ def main() -> int:
                     help="comma-separated kernel names: build and check only "
                          "these (phases 1-3) and skip the serving phases")
     ap.add_argument("--skip-serving", action="store_true",
-                    help="run phases 1-3 and the phases 6-13 only")
+                    help="run phases 1-3, 6-13 and 14 (b, c) only")
+    ap.add_argument("--only-moe", action="store_true",
+                    help="run phases 1-3 and 14 only")
     args = ap.parse_args()
     import torch
 
@@ -2588,9 +2784,9 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     paths = {}  # path -> its launches
-    if not args.skip_serving:
+    if not (args.skip_serving or args.only_moe):
         # -- 4. granite-8b at full width, its profile and its 2-layer cut -----------------
-        engine, paths["granite-8b"] = phase_serve(torch, kcommon)
+        engine, paths["granite-8b"] = phase_serve(torch, kcommon, get_config("granite_8b"))
         phase_profile(torch, "granite-8b", engine.cfg, engine.params)
         phase_kernel_vs_plain(torch, "granite-8b", engine.cfg, engine.params)
         del engine
@@ -2604,6 +2800,52 @@ def main() -> int:
         del cfg, params
         free()
         done(5)
+
+    if not args.only_moe:
+        phases_6_to_13(torch, kcommon, paths, smi, free, done)
+
+    # -- 14. the MoE family and the vision prefix -------------------------------------------
+    if not args.skip_serving:  # (a) deepseek-moe-16b at full width and depth
+        engine, paths["deepseek-moe-16b"] = phase_serve(torch, kcommon,
+                                                        get_config("deepseek_moe_16b"))
+        phase_drops(torch, engine.cfg, engine.params)
+        phase_profile(torch, "deepseek-moe-16b", engine.cfg, engine.params)
+        phase_kernel_vs_plain(torch, "deepseek-moe-16b", engine.cfg, engine.params)
+        del engine
+        free()
+    # (b) qwen3-vl-30b-a3b, full width, 4 of 48 layers, on frame embeddings
+    vl = get_config("qwen3_vl_30b_a3b")
+    paths["qwen3-vl-30b-a3b train"], _ = phase_train(
+        torch, kcommon, "qwen3-vl-30b-a3b", vl.replace(num_layers=VL_TRAIN_LAYERS),
+        prefix=VL_PREFIX)
+    free()
+    # (c) its 2-layer cut's train step, kernels vs plain, with a control
+    phase_train_vs_plain(torch, "qwen3-vl-30b-a3b", vl, "K1 backward without the causal mask",
+                         control_k1_without_mask, prefix=VL_PREFIX)
+    free()
+    done(14)
+
+    # launches: each kernel's count on the serving path it was ported for
+    # (granite-8b for K1-K3, rwkv6-3b for K4; their training paths with
+    # --skip-serving, the MoE paths with --only-moe), and each path's count
+    # beside it
+    for kname, e in entries.items():
+        path = "rwkv6-3b" if kname == "wkv6" else "granite-8b"
+        e["launches_path"] = next(p for p in (path, f"{path} train", *paths) if p in paths)
+        e["launches"] = paths[e["launches_path"]][kname]
+        e["launches_by_path"] = {p: launches[kname] for p, launches in paths.items()}
+
+    log(smi)
+    log(json.dumps({"kernels": [entries[k] for k in kcommon.KERNELS]}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
+    return 0
+
+
+def phases_6_to_13(torch, kcommon, paths, smi, free, done):
+    """The training phases on granite-8b and rwkv6-3b, the data-plane and
+    recovery phases on the granite cut, and the host phase; each adds its
+    launches to ``paths``."""
+    from repro_torch.configs.registry import get_config
 
     # -- 6. granite-8b training, full width, 8 of 36 layers --------------------------------
     granite, rwkv = get_config("granite_8b"), get_config("rwkv6_3b")
@@ -2653,20 +2895,6 @@ def main() -> int:
     phase_ops_chaos(smi)
     paths["ops and chaos (host)"] = dict(kcommon.launches)
     done(13)
-
-    # launches: each kernel's count on the serving path it was ported for
-    # (granite-8b for K1-K3, rwkv6-3b for K4; their training paths with
-    # --skip-serving), and each path's count beside it
-    for kname, e in entries.items():
-        path = "rwkv6-3b" if kname == "wkv6" else "granite-8b"
-        e["launches_path"] = path if path in paths else f"{path} train"
-        e["launches"] = paths[e["launches_path"]][kname]
-        e["launches_by_path"] = {p: launches[kname] for p, launches in paths.items()}
-
-    log(smi)
-    log(json.dumps({"kernels": [entries[k] for k in kcommon.KERNELS]}))
-    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
-    return 0
 
 
 if __name__ == "__main__":

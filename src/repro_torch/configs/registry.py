@@ -10,9 +10,21 @@ from typing import Dict, List
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS: List[str] = ["granite_8b", "rwkv6_3b"]
+ARCH_IDS: List[str] = [
+    "rwkv6_3b", "granite_8b", "deepseek_moe_16b", "qwen3_moe_235b_a22b",
+    "internvl2_76b",
+    # the paper's own end-to-end training target
+    "qwen3_vl_30b_a3b",
+]
 
-_ALIASES = {"granite-8b": "granite_8b", "rwkv6-3b": "rwkv6_3b"}
+_ALIASES = {
+    "rwkv6-3b": "rwkv6_3b",
+    "granite-8b": "granite_8b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "internvl2-76b": "internvl2_76b",
+    "qwen3-vl-30b-a3b": "qwen3_vl_30b_a3b",
+}
 
 
 def canonical(arch: str) -> str:

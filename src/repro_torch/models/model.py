@@ -1,5 +1,5 @@
 """Family dispatch (port of ``repro.models.model``): one API over the ported
-architecture families — so far ``dense`` and ``rwkv``.
+architecture families — ``dense``, ``moe``, ``vlm`` and ``rwkv``.
 
   param_specs(cfg)                         -> ParamSpec tree
   forward(cfg, params, batch)              -> (logits, aux)
@@ -8,8 +8,10 @@ architecture families — so far ``dense`` and ``rwkv``.
                                               recurrent state)
   prefill / decode_step                    -> serving
 
-``batch`` is a dict holding tokens (B, S) int; a ``frontend_embeds`` entry,
-which only the vlm and audio families read, is refused until they are ported.
+``batch`` is a dict holding tokens (B, S) int and, for the transformer
+families, optional ``frontend_embeds`` (B, P, d_model): precomputed modality
+embeddings put before the token embeddings. Labels are next-token shifted
+in the loss; the prefix positions are left out of it.
 """
 from __future__ import annotations
 
@@ -23,20 +25,27 @@ from repro_torch.models.config import ModelConfig
 
 #: where each family that is not ported yet stands in ROADMAP.md, Queue 1
 _NOT_PORTED = {
-    "moe": "item 3: MoE",
     "hybrid": "item 5: Mamba2 / Zamba2",
-    "vlm": "item 6: frontends",
-    "audio": "item 6: frontends",
+    "audio": "item 6: frontends (audio codebooks)",
 }
-_PORTED = {"dense": transformer, "rwkv": rwkv6}
+_PORTED = {"dense": transformer, "moe": transformer, "vlm": transformer,
+           "rwkv": rwkv6}
 
 
-def _tokens(batch: Dict) -> torch.Tensor:
-    if "frontend_embeds" in batch:
+def _inputs(cfg: ModelConfig, batch: Dict):
+    """(tokens, kwargs of the family's forward / prefill): the transformer
+    families take the ``frontend_embeds`` prefix; the audio frontend's is
+    refused until its codebooks are ported, and RWKV has no prefix."""
+    fe = batch.get("frontend_embeds")
+    if fe is None:
+        return batch["tokens"], {}
+    if cfg.family == "audio":
         raise NotImplementedError(
-            "frontend_embeds feed the vlm/audio frontends, which are not "
-            f"ported yet (ROADMAP.md, Queue 1 {_NOT_PORTED['vlm']})")
-    return batch["tokens"]
+            "frontend_embeds of the audio family are not ported yet "
+            f"(ROADMAP.md, Queue 1 {_NOT_PORTED['audio']})")
+    if _family(cfg) is not transformer:
+        raise ValueError(f"family {cfg.family!r} takes no frontend_embeds")
+    return batch["tokens"], {"frontend_embeds": fe}
 
 
 def _family(cfg: ModelConfig):
@@ -56,15 +65,19 @@ def param_specs(cfg: ModelConfig):
 
 def forward(cfg: ModelConfig, params, batch: Dict
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    return _family(cfg).forward(cfg, params, _tokens(batch))
+    tokens, kw = _inputs(cfg, batch)
+    return _family(cfg).forward(cfg, params, tokens, **kw)
 
 
 def loss_fn(cfg: ModelConfig, params, batch: Dict
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token CE of ``logits[:, :-1]`` against ``tokens[:, 1:]``, plus
-    the aux loss. Returns (total, {"ce_loss", "aux_loss"})."""
+    """Next-token CE of the token positions' logits, ``logits[:, P:][:,
+    :-1]`` (P the frontend prefix's length, else 0), against ``tokens[:,
+    1:]``, plus the aux loss. Returns (total, {"ce_loss", "aux_loss"})."""
     logits, aux = forward(cfg, params, batch)
-    loss = softmax_cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
+    fe = batch.get("frontend_embeds")
+    P = fe.shape[1] if fe is not None else 0
+    loss = softmax_cross_entropy(logits[:, P:][:, :-1], batch["tokens"][:, 1:])
     return loss + aux, {"ce_loss": loss, "aux_loss": aux}
 
 
@@ -90,4 +103,5 @@ def decode_step(cfg: ModelConfig, params, state, tokens, pos: int):
 def prefill(cfg: ModelConfig, params, batch: Dict, cache=None):
     """Last-position logits + the decode state (KV cache or recurrent
     state), written into ``cache`` if given."""
-    return _family(cfg).prefill(cfg, params, _tokens(batch), cache)
+    tokens, kw = _inputs(cfg, batch)
+    return _family(cfg).prefill(cfg, params, tokens, cache, **kw)

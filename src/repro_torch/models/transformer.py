@@ -1,5 +1,8 @@
-"""Dense decoder-only transformer (GQA + SwiGLU), port of the dense family of
-``repro.models.transformer``.
+"""Decoder-only transformer (GQA + SwiGLU), port of ``repro.models.transformer``
+for the dense, moe and vlm families (moe swaps the FFN for
+``repro_torch.models.moe``; vlm is the dense backbone). A modality frontend
+enters as precomputed embeddings, ``frontend_embeds`` (B, P, D), put before
+the token embeddings.
 
 Weights keep the JAX layouts and leaf paths — ``wq`` (L, D, H, dh), ``wo``
 (L, H, dh, D), ... — with the leading "layers" axis; the layer scan becomes a
@@ -23,9 +26,7 @@ from repro_torch.models.common import (ParamSpec, apply_rope, attention,
                                        layer_slices, remat, rms_norm,
                                        rope_angles, swiglu)
 from repro_torch.models.config import ModelConfig
-
-MOE_NOT_PORTED = ("the MoE family is not ported yet "
-                  "(ROADMAP.md, Queue 1 item 3: MoE)")
+from repro_torch.models.moe import moe_ffn, moe_param_specs
 
 
 # ---------------------------------------------------------------------------
@@ -35,8 +36,6 @@ MOE_NOT_PORTED = ("the MoE family is not ported yet "
 def layer_param_specs(cfg: ModelConfig, L: Optional[int] = None
                       ) -> Dict[str, ParamSpec]:
     """Specs for a stack of L transformer layers (leading 'layers' axis)."""
-    if cfg.family == "moe":
-        raise NotImplementedError(MOE_NOT_PORTED)
     if L is None:
         L = cfg.num_layers
     D, H, G, dh, F = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
@@ -48,15 +47,20 @@ def layer_param_specs(cfg: ModelConfig, L: Optional[int] = None
         "wv": ParamSpec((L, D, G, dh), ("layers", "embed", "kv", None)),
         "wo": ParamSpec((L, H, dh, D), ("layers", "heads", None, "embed")),
         "mlp_norm": ParamSpec((L, D), ("layers", "embed"), init="ones"),
-        "w_gate": ParamSpec((L, D, F), ("layers", "embed", "mlp")),
-        "w_up": ParamSpec((L, D, F), ("layers", "embed", "mlp")),
-        "w_down": ParamSpec((L, F, D), ("layers", "mlp", "embed")),
     }
     if cfg.qkv_bias:
         specs.update({
             "bq": ParamSpec((L, H, dh), ("layers", "heads", None), init="zeros"),
             "bk": ParamSpec((L, G, dh), ("layers", "kv", None), init="zeros"),
             "bv": ParamSpec((L, G, dh), ("layers", "kv", None), init="zeros"),
+        })
+    if cfg.family == "moe":
+        specs.update(moe_param_specs(cfg, L))
+    else:
+        specs.update({
+            "w_gate": ParamSpec((L, D, F), ("layers", "embed", "mlp")),
+            "w_up": ParamSpec((L, D, F), ("layers", "embed", "mlp")),
+            "w_down": ParamSpec((L, F, D), ("layers", "mlp", "embed")),
         })
     return specs
 
@@ -126,26 +130,41 @@ def dense_ffn(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     return swiglu(g, u) @ p["w_down"].to(cd)
 
 
+def _ffn(cfg: ModelConfig, p, x: torch.Tensor):
+    """The family's FFN: (y, aux_loss); the dense FFN's aux loss is None."""
+    if cfg.family == "moe":
+        return moe_ffn(cfg, p, x)
+    return dense_ffn(cfg, p, x), None
+
+
 def _layer(cfg: ModelConfig, lp, h: torch.Tensor, cos, sin):
-    """One pre-norm residual layer. Returns (h, k, v); k/v feed the cache."""
+    """One pre-norm residual layer. Returns (h, k, v, aux_loss); k/v feed
+    the cache."""
     x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
     q, k, v = _qkv(cfg, lp, x, cos, sin)
     out = attention(q, k, v, causal=True)
     h = h + _attn_out(cfg, lp, out)
     x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-    return h + dense_ffn(cfg, lp, x), k, v
+    y, aux = _ffn(cfg, lp, x)
+    return h + y, k, v, aux
 
 
 def decoder_layer(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
                   h: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pre-norm residual layer. Returns (h, aux_loss)."""
-    h, _k, _v = _layer(cfg, lp, h, cos, sin)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    h, _k, _v, aux = _layer(cfg, lp, h, cos, sin)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux
 
 
-def _embed_and_rope(cfg, params, tokens):
+def _embed_and_rope(cfg, params, tokens, frontend_embeds=None):
+    """Token embeddings, after the frontend prefix if one is given, and the
+    RoPE angles of all P + S positions."""
     h = _embed_tokens(cfg, params, tokens)
+    if frontend_embeds is not None:
+        h = torch.cat([frontend_embeds.to(h.dtype), h], dim=1)
     S = h.shape[1]
     cos, sin = rope_angles(torch.arange(S, device=h.device), cfg.head_dim,
                            cfg.rope_theta)
@@ -156,11 +175,14 @@ def _embed_and_rope(cfg, params, tokens):
 # Forward / prefill / decode
 # ---------------------------------------------------------------------------
 
-def forward(cfg: ModelConfig, params, tokens: torch.Tensor
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
+            frontend_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Training/eval forward pass. Returns (logits, aux_loss). tokens: (B, S)
-    int."""
-    h, cos, sin = _embed_and_rope(cfg, params, tokens)
+    """Training/eval forward pass. Returns (logits, aux_loss), the aux loss
+    summed over the layers. tokens: (B, S) int; frontend_embeds: (B, P, D)
+    precomputed modality embeddings, prepended (logits cover P + S
+    positions)."""
+    h, cos, sin = _embed_and_rope(cfg, params, tokens, frontend_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     layer = remat(cfg, decoder_layer)
     for lp in layer_slices(params, cfg.num_layers):
@@ -176,23 +198,25 @@ def state_specs(cfg: ModelConfig, batch: int, max_seq: int):
     return {"k": (shape, cfg.cdtype), "v": (shape, cfg.cdtype)}
 
 
-def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache=None):
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache=None,
+            frontend_embeds: Optional[torch.Tensor] = None):
     """Forward pass that also fills the KV cache. Returns (logits_last, cache).
 
-    Without ``cache`` a (L, B, S, G, dh) cache is allocated; with one (of any
-    length T >= S, e.g. preallocated for serving) positions [0, S) are
-    written in place and the same dict is returned.
+    S counts the frontend prefix's P positions and the tokens. Without
+    ``cache`` a (L, B, S, G, dh) cache is allocated; with one (of any length
+    T >= S, e.g. preallocated for serving) positions [0, S) are written in
+    place and the same dict is returned.
     """
-    h, cos, sin = _embed_and_rope(cfg, params, tokens)
+    h, cos, sin = _embed_and_rope(cfg, params, tokens, frontend_embeds)
     B, S = h.shape[:2]
     if cache is None:
         cache = {k: torch.empty(shape, dtype=dt, device=h.device)
                  for k, (shape, dt) in state_specs(cfg, B, S).items()}
     if cache["k"].shape[2] < S:
         raise ValueError(f"cache holds {cache['k'].shape[2]} positions, "
-                         f"prompt has {S}")
+                         f"prompt (with its prefix) has {S}")
     for i, lp in enumerate(layer_slices(params, cfg.num_layers)):
-        h, k, v = _layer(cfg, lp, h, cos, sin)
+        h, k, v, _aux = _layer(cfg, lp, h, cos, sin)
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
     # RMSNorm is per row, so only the last position is normed and unembedded
@@ -221,6 +245,6 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
         out = decode_attention(q[:, 0], kc, vc, pos)[:, None]
         h = h + _attn_out(cfg, lp, out)
         x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-        h = h + dense_ffn(cfg, lp, x)
+        h = h + _ffn(cfg, lp, x)[0]
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _unembed(cfg, params, h)[:, 0], cache

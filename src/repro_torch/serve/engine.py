@@ -31,11 +31,15 @@ from repro_torch.models import (ModelConfig, decode_step, init_decode_state,
 from repro_torch.models.common import resolve_device
 from repro_torch.obs.registry import COUNTER, GAUGE, StatsView
 
+_DENSE_CAST = ("embed", "unembed", "wq", "wk", "wv", "wo", "bq", "bk", "bv",
+               "w_gate", "w_up", "w_down")
 #: per family, the leaves the JAX model casts to compute_dtype on use (RWKV6
-#: keeps w0 and u fp32, as JAX casts them to float32, and every norm scale)
+#: keeps w0 and u fp32, as JAX casts them to float32, the MoE router stays
+#: fp32, as JAX routes in float32, and so does every norm scale)
 _CAST_ON_LOAD = {
-    "dense": ("embed", "unembed", "wq", "wk", "wv", "wo", "bq", "bk", "bv",
-              "w_gate", "w_up", "w_down"),
+    "dense": _DENSE_CAST,
+    "moe": _DENSE_CAST + ("sh_gate", "sh_up", "sh_down"),
+    "vlm": _DENSE_CAST,
     "rwkv": ("embed", "unembed", "w_r", "w_k", "w_v", "w_g", "w_o", "mix_w1",
              "mix_w2", "mu_base", "mu_rkvgw", "decay_w1", "decay_w2", "cm_k",
              "cm_v", "cm_r", "cm_mu_k", "cm_mu_r"),
@@ -96,7 +100,7 @@ class ServeEngine:
         if cfg.family not in ("dense", "moe", "vlm", "audio"):
             raise ValueError("ServeEngine currently targets KV-cache families; "
                              "use decode_step directly for SSM/hybrid")
-        if cfg.family != "dense":
+        if cfg.family not in _CAST_ON_LOAD:
             raise NotImplementedError(f"serving family {cfg.family!r} is not "
                                       f"ported yet (see ROADMAP.md)")
         self.device = resolve_device(device)

@@ -25,6 +25,8 @@ from the saved inputs and differentiates it, which is what autograd through
 the plain version does on the same inputs: the kernel's forward output never
 enters the gradients, so the two are held bit-identical (tolerance zero).
 """
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -134,6 +136,10 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape):
     (2, 1, 300, 4, 2, 64, False),
     # dh 64 over several q tiles
     (2, 300, 300, 4, 4, 64, True),
+    # deepseek-moe-16b's serving prefill (rep 1) and qwen3-vl-30b-a3b's
+    # training sequence, 1024 tokens after a 128-frame prefix (rep 8)
+    (8, 1000, 1000, 16, 16, 128, True),
+    (4, 1152, 1152, 32, 4, 128, True),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, S, T, H, G, dh, causal):
     gen = torch.Generator(device=cuda).manual_seed(1)
@@ -158,6 +164,9 @@ def test_flash_attention_kernel_matches_plain(cuda, B, S, T, H, G, dh, causal):
     # long caches: each CTA of a cluster walks many tiles through its ring
     (1, 8, 1, 128, 8192, 8191),
     (2, 32, 8, 128, 8192, 5000),
+    # deepseek-moe-16b's decode (rep 1) over the 1032-position cache
+    (8, 16, 16, 128, 1032, 1015),
+    (8, 16, 16, 128, 1032, 1031),
 ])
 def test_decode_attention_kernel_matches_plain(cuda, B, H, G, dh, T, cur):
     gen = torch.Generator(device=cuda).manual_seed(2)
@@ -270,6 +279,92 @@ def test_model_on_the_card_launches_the_kernels_and_matches_the_cpu(cuda):
                                 "flash_attention": L,
                                 "decode_attention": 3 * L,
                                 "wkv6": 0}
+    for a, b in zip(out["cuda"], out["cpu"]):
+        _assert_close(a.cpu(), b)
+
+
+#: deepseek-moe-16b's layout (rep 1, shared experts) and qwen3-vl-30b-a3b's
+#: (rep 8, no shared experts, a vision prefix) at head_dim 64, the smallest
+#: the kernels take
+_DEEPSEEK_NARROW = ModelConfig(
+    name="deepseek-moe-narrow", family="moe", num_layers=2, d_model=256,
+    num_heads=4, num_kv_heads=4, d_ff=64, vocab_size=512, moe_num_experts=8,
+    moe_top_k=2, moe_num_shared=1, moe_d_ff=64)
+_QWEN3_VL_NARROW = ModelConfig(
+    name="qwen3-vl-narrow", family="moe", num_layers=2, d_model=256,
+    num_heads=8, num_kv_heads=1, head_dim=64, d_ff=64, vocab_size=512,
+    moe_num_experts=8, moe_top_k=2, moe_d_ff=64, frontend="vision",
+    rope_theta=1e6)
+
+
+@contextlib.contextmanager
+def _routing_replay(first_run):
+    """Record each call's top-k choices of ``moe._routing`` while
+    ``first_run[0]`` is true, then replay them, in call order, in the runs
+    after: a near-tied choice that the card's bf16 hidden states tip the
+    other way would otherwise move a token's whole FFN output. Yields the
+    list of (calls, choices that differed) of the later runs."""
+    from repro_torch.models import moe
+
+    recorded, flips, routing = [], [], moe._routing
+
+    def wrapped(cfg, p, xt):
+        if first_run[0]:
+            out = routing(cfg, p, xt)
+            recorded.append(out[2].cpu())
+            return out
+        probs = moe.router_probs(p, xt)
+        want = recorded[len(flips)].to(probs.device)
+        flips.append(int((moe.top_k(probs, cfg.moe_top_k)[1] != want).sum()))
+        return moe.plan(cfg, probs, want)
+
+    moe._routing = wrapped
+    try:
+        yield flips
+    finally:
+        moe._routing = routing
+
+
+@pytest.mark.parametrize("cfg", [_DEEPSEEK_NARROW, _QWEN3_VL_NARROW],
+                         ids=lambda c: c.name)
+def test_moe_model_on_the_card_launches_the_kernels_and_matches_the_cpu(
+        cuda, cfg):
+    """A 2-layer MoE model at a narrow width: prefill (after an 8-frame
+    prefix for the vision layout) and three decode steps on the card, launch
+    counts as the dense model's, logits against the CPU port at 4e-2 under
+    the card's routing choices."""
+    cpu_params = serving_params(cfg, init_params(param_specs(cfg), seed=0,
+                                                 device="cpu"), torch.device("cpu"))
+    gpu_params = serving_params(cfg, cpu_params, cuda)
+    assert gpu_params["layers"]["router"].dtype == torch.float32
+    tokens = torch.arange(2 * 12).reshape(2, 12) * 7 % cfg.vocab_size
+    batch = {"tokens": tokens}
+    if cfg.frontend == "vision":
+        batch["frontend_embeds"] = 0.5 * torch.randn(
+            (2, 8, cfg.d_model), generator=torch.Generator().manual_seed(0))
+    n0 = 12 + (8 if cfg.frontend == "vision" else 0)
+    first, out, counts = [True], {}, {}
+    with torch.inference_mode(), _routing_replay(first) as flips:
+        for dev, params in (("cuda", gpu_params), ("cpu", cpu_params)):
+            kcommon.reset_launches()
+            cache = init_decode_state(cfg, 2, n0 + 4, device=dev)
+            logits, cache = prefill(cfg, params,
+                                    {k: v.to(dev) for k, v in batch.items()},
+                                    cache=cache)
+            steps = [logits]
+            for i in range(3):
+                logits, cache = decode_step(cfg, params, cache,
+                                            tokens[:, i].to(dev), n0 + i)
+                steps.append(logits)
+            out[dev], counts[dev] = steps, dict(kcommon.launches)
+            first[0] = False
+    L = cfg.num_layers
+    print(f"{cfg.name}: choices the CPU would have made otherwise, per "
+          f"call: {flips}")
+    assert len(flips) == 4 * L
+    assert counts["cuda"] == {"rmsnorm": (2 * L + 1) * 4, "flash_attention": L,
+                              "decode_attention": 3 * L, "wkv6": 0}
+    assert counts["cpu"] == {name: 0 for name in kcommon.KERNELS}
     for a, b in zip(out["cuda"], out["cpu"]):
         _assert_close(a.cpu(), b)
 
@@ -387,30 +482,38 @@ def test_training_refuses_what_the_kernels_refuse(cuda):
         wkv6(r, r, r, r, torch.zeros(2, 8, device=cuda), 64)
 
 
-@pytest.mark.parametrize("family", ["dense", "rwkv"])
+@pytest.mark.parametrize("family", ["dense", "rwkv", "moe"])
 @pytest.mark.parametrize("remat", [True, False])
 def test_train_path_launches_the_kernels_and_matches_the_cpu(cuda, family,
                                                              remat):
     """Loss and grads of a 2-layer model on the card: each forward kernel
     launches once per use, twice with remat (forward and recompute); the
-    loss against the CPU at the bf16 atol = rtol = 4e-2."""
+    loss against the CPU at the bf16 atol = rtol = 4e-2. The MoE model is
+    qwen3-vl-30b-a3b's layout at a narrow width (rep 8, no shared experts),
+    trained on a frame-embedding prefix."""
+    batch = {}
     if family == "dense":
         cfg = ModelConfig(name="gpu-smoke", family="dense", num_layers=2,
                           d_model=256, num_heads=4, num_kv_heads=2, d_ff=512,
                           vocab_size=512)  # head_dim 64
         per_layer = {"rmsnorm": 2, "flash_attention": 1}
+    elif family == "moe":
+        cfg = _QWEN3_VL_NARROW
+        per_layer = {"rmsnorm": 2, "flash_attention": 1}
+        batch["frontend_embeds"] = 0.5 * torch.randn(
+            (2, 8, cfg.d_model), generator=torch.Generator().manual_seed(0))
     else:
         cfg = RWKV_SMOKE
         per_layer = {"rmsnorm": 3, "wkv6": 1}
     cfg = cfg.replace(remat=remat)
     params = init_params(param_specs(cfg), seed=0, device="cpu")
-    tokens = torch.arange(2 * 24).reshape(2, 24) * 7 % cfg.vocab_size
+    batch["tokens"] = torch.arange(2 * 24).reshape(2, 24) * 7 % cfg.vocab_size
     out = {}
     for dev in ("cpu", "cuda"):
         kcommon.reset_launches()
         loss, _, grads = loss_and_grads(
             cfg, tree_map(lambda t: t.to(dev), params),
-            {"tokens": tokens.to(dev)})
+            {k: v.to(dev) for k, v in batch.items()})
         assert all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
         out[dev] = (loss, dict(kcommon.launches))
     times = 2 if remat else 1

@@ -115,3 +115,45 @@ def test_engine_stats_keep_the_serve_metric_names():
         "serve.0.decode_steps", "serve.0.prefills", "serve.0.tokens_out",
         "serve.0.wall_decode_s", "serve.0.wall_prefill_s"]
     assert stats.tokens_per_s == 2.0
+
+
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "internvl2_76b"])
+def test_moe_and_vlm_engines_match_jax_engine_token_for_token(arch):
+    """The MoE family (deepseek-moe-16b smoke: prefill routes 3 x 8 tokens
+    at capacity 8, each decode step 3 tokens at capacity 4) and the vlm
+    backbone, served greedily in fp32 by both engines."""
+    from repro.configs.registry import get_smoke_config as jax_smoke
+
+    cfg = jax_smoke(arch).replace(compute_dtype="float32")
+    jparams = jax_init_params(jax_param_specs(cfg), seed=5)
+    tparams = convert.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(0, cfg.vocab_size, (3, 8), dtype=np.int32)
+    jout = JaxServeEngine(cfg, jparams, max_seq=20).run_batch(
+        [JaxRequest(rid=i, prompt=p, max_new_tokens=8)
+         for i, p in enumerate(prompts)])
+    port_cfg = get_smoke_config(arch).replace(compute_dtype="float32")
+    tout = ServeEngine(port_cfg, tparams, max_seq=20, device="cpu").run_batch(
+        [Request(rid=i, prompt=p, max_new_tokens=8)
+         for i, p in enumerate(prompts)])
+    assert [r.generated for r in tout] == [r.generated for r in jout]
+
+
+def test_moe_engine_casts_experts_and_keeps_router_and_norms_fp32():
+    """The leaves JAX casts on use (the experts, the shared experts, the
+    attention matrices, embed/unembed) are bf16 once at load; the router,
+    which JAX routes in float32, and every norm scale stay fp32."""
+    cfg = get_smoke_config("deepseek_moe_16b")  # bf16 compute, fp32 params
+    eng, _ = _engine(cfg, 0, 8)
+    layers = eng.params["layers"]
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                 "sh_gate", "sh_up", "sh_down"):
+        assert layers[name].dtype == torch.bfloat16, name
+    assert eng.params["embed"].dtype == eng.params["unembed"].dtype == torch.bfloat16
+    for name in ("router", "attn_norm", "mlp_norm"):
+        assert layers[name].dtype == torch.float32, name
+    assert eng.params["final_norm"].dtype == torch.float32
+    reqs = eng.run_batch([Request(rid=0, prompt=np.arange(5, dtype=np.int32),
+                                  max_new_tokens=3)])
+    assert len(reqs[0].generated) == 3
