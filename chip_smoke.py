@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels rmsnorm,wkv6   (phases 1-3 for those only)
     python3 chip_smoke.py --skip-serving           (phases 1-3, 6-13 and 14 (b, c))
     python3 chip_smoke.py --only-moe               (phases 1-3 and 14)
+    python3 chip_smoke.py --only-hybrid            (phases 1-3 and 15)
 
 Phases, each of which raises (exit code != 0) on failure:
 
@@ -16,7 +17,10 @@ Phases, each of which raises (exit code != 0) on failure:
    serving paths' shapes (RMSNorm at both models' widths, 4096 and 2560,
    and the MoE models' 2048; K1 and K3 also at deepseek-moe-16b's serving
    shapes, 16 heads over 16 KV heads, timed, and K1 at qwen3-vl-30b-a3b's
-   training sequence, 32 heads over 4) plus a ragged and a tiny case each:
+   training sequence, 32 heads over 4; K1 and K3 at zamba2-7b's head_dim
+   112, 32 heads over 32, timed, each with a ragged case and a one-key
+   control; RMSNorm at zamba2-7b's 3584 and 7168) plus a ragged and a tiny
+   case each:
    max |err| and
    the worst element's share of its limit (one bf16 ulp of the value plus
    1-2% of its output vector's RMS; see KERNEL_RTOL), with a one-key fault that the
@@ -211,6 +215,23 @@ Phases, each of which raises (exit code != 0) on failure:
    cut's train step, kernels vs plain under the kernel path's routing, with
    phase 8's K1 control refused.
 
+15. The Mamba2 / Zamba2 hybrid (``models/mamba2.py``). (a) zamba2-7b (81
+   Mamba2 layers, d_model 3584, one shared attention block of 32 heads of
+   112 after every 6 of them, 13 invocations) served as phase 5 serves
+   rwkv6-3b (``prefill`` into a preallocated state, then greedy
+   ``decode_step``; ``ServeEngine`` refuses the hybrid as the JAX engine
+   does; skipped under ``--skip-serving``), its weights drawn leaf by leaf
+   and cast: 189 RMSNorm + 13 flash-attention launches a prefill, 189
+   RMSNorm + 13 flash-decode a decode step, no WKV6; the profile. (b) Its
+   7-layer cut at full width (one group of 6 and the shared block, then a
+   tail layer) trains 3 AdamW steps as phase 6; with the nested remat a
+   Mamba2 layer inside the group runs forward three times, the shared
+   block and the tail layer twice: 45 RMSNorm + 2 flash-attention
+   launches a step. (c) The same cut, kernels vs plain: prefill logits and
+   three decode steps' (bf16 weights; the control moves each head's K1 and
+   K3 output onto the next head and must be refused at every step), then
+   one train step's loss and gradients (phase 8's K1 control refused).
+
 The last lines are the ``nvidia-smi`` name/power-limit line as it prints
 it, one JSON object with every kernel's numbers, and ``{"ok": true,
 "device": {...}}``. A kernel's ``launches`` is its count on the serving path
@@ -218,8 +239,8 @@ it was ported for (granite-8b for RMSNorm and both attention kernels,
 rwkv6-3b for WKV6); ``launches_by_path`` gives each path's count, the
 training paths' over their 3 steps, the fused path's over its 53, the
 resume path's over its 11, the failure path's over its steps, the streams
-path's over its 22, phase 13's host path's (none), and phase 14's serving
-and training paths'.
+path's over its 22, phase 13's host path's (none), and phase 14's and
+phase 15's serving and training paths'.
 """
 from __future__ import annotations
 
@@ -346,6 +367,11 @@ HOST_TIMEOUT_S = 300          # a subprocess of phase 13
 # max(16, min(256, S // 8)) positions (src/repro/train/step.py:51-52)
 VL_TRAIN_LAYERS = 4           # of 48: 3.115 B parameters, 46.4 GiB of fp32 state
 VL_PREFIX = max(16, min(256, TRAIN_SEQ // 8))
+# phase 15: the Mamba2 / Zamba2 hybrid. zamba2-7b serves at full width and
+# depth with phase 4's settings; its full-width cut of one group of 6
+# Mamba2 layers and the shared block, then one tail layer, trains on phase
+# 6's batch (all 81 layers' fp32 state would take 108 GB)
+HYBRID_TRAIN_LAYERS = 7       # of 81: 0.981 B parameters, 15.7 GB of fp32 state
 # the forward kernels' names as the profiler lists them
 KERNEL_SYMBOLS = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "fa_fwd_kernel",
                   "decode_attention": "decode_kernel", "wkv6": "wkv6_kernel"}
@@ -536,8 +562,10 @@ def phase_kernels(torch, F, flush, names):
 
 
 def kernel_rmsnorm(torch, F, flush, randn, entries):
-    """K2 RMSNorm: granite-8b's D 4096, rwkv6-3b's D 2560, at the serving
-    and the training rows. Timed through the launcher ``rmsnorm_fwd``."""
+    """K2 RMSNorm: granite-8b's D 4096, rwkv6-3b's D 2560, zamba2-7b's D
+    3584 and its Mamba2 blocks' D 7168 (``out_norm`` over d_inner), at the
+    serving and the training rows. Timed through the launcher
+    ``rmsnorm_fwd``."""
     from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_fwd
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
@@ -547,12 +575,18 @@ def kernel_rmsnorm(torch, F, flush, randn, entries):
                              ("rwkv decode", BATCH, 2560), ("tiny", 3, 64),
                              ("train", train_rows, 4096), ("rwkv train", train_rows, 2560),
                              ("moe prefill", BATCH * PROMPT, 2048),
-                             ("vl train", TRAIN_GB * (TRAIN_SEQ + VL_PREFIX), 2048)):
+                             ("vl train", TRAIN_GB * (TRAIN_SEQ + VL_PREFIX), 2048),
+                             ("hybrid prefill", BATCH * PROMPT, 3584),
+                             ("hybrid out_norm", BATCH * PROMPT, 7168),
+                             ("hybrid decode", BATCH, 3584),
+                             ("hybrid decode out_norm", BATCH, 7168),
+                             ("hybrid train out_norm", train_rows, 7168)):
         x, w = randn(rows, dim), randn(dim, dtype=torch.float32)
         err, share = check_kernel(torch, f"rmsnorm {label}", rmsnorm(x, w),
                                   rmsnorm_ref(x, w))
         line = f"rmsnorm {label} ({rows}, {dim}): max|err| {err:.3e} ({share:.2f} of limit)"
-        if label in ("prefill", "decode", "rwkv prefill"):
+        if label in ("prefill", "decode", "rwkv prefill", "hybrid prefill",
+                     "hybrid out_norm"):
             ms = time_ms(torch, lambda: rmsnorm_fwd(x, w), flush, 50)
             plain = time_ms(torch, lambda: rmsnorm_ref(x, w), flush, 20)
             wb = w.to(x.dtype)
@@ -578,16 +612,18 @@ def kernel_rmsnorm(torch, F, flush, randn, entries):
                              f"the launcher alone {bare_us:.2f} us")
                     entries["rmsnorm"].update(decode_host_us_function=fn_us,
                                               decode_host_us_launcher=bare_us)
-                if label == "rwkv prefill":
+                else:
                     entries["rmsnorm"].update({key + "_library_ms": lib,
-                                               key + "_bound_ms": b_ms})
+                                               key + "_bound_ms": b_ms,
+                                               key + "_plain_ms": plain})
         log(line)
 
 
 def kernel_flash_attention(torch, F, flush, randn, entries):
     """K1 flash attention at granite-8b's prefill and training shapes,
-    deepseek-moe-16b's prefill (rep 1) and qwen3-vl-30b-a3b's training
-    sequence after its prefix (rep 8). Timed through the launcher
+    deepseek-moe-16b's prefill (rep 1), qwen3-vl-30b-a3b's training
+    sequence after its prefix (rep 8) and zamba2-7b's prefill and training
+    shapes (head_dim 112, rep 1). Timed through the launcher
     ``flash_attention_fwd``."""
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          flash_attention_fwd)
@@ -598,6 +634,9 @@ def kernel_flash_attention(torch, F, flush, randn, entries):
             ("train", (TRAIN_GB, TRAIN_SEQ, 32, 8, 128, True)),
             ("moe prefill", (BATCH, PROMPT, 16, 16, 128, True)),
             ("vl train", (TRAIN_GB, TRAIN_SEQ + VL_PREFIX, 32, 4, 128, True)),
+            ("hybrid prefill", (BATCH, PROMPT, 32, 32, 112, True)),
+            ("hybrid train", (TRAIN_GB, TRAIN_SEQ, 32, 32, 112, True)),
+            ("hybrid ragged", (2, 45, 4, 4, 112, True)),
             ("ragged", (2, 45, 4, 2, 128, True)),
             ("full", (2, 100, 6, 3, 64, False)),
             ("tiny", (1, 5, 2, 1, 64, True))):
@@ -607,7 +646,7 @@ def kernel_flash_attention(torch, F, flush, randn, entries):
                                   flash_attention_ref(q, k, v, causal))
         line = (f"flash_attention {label} q{(B, S, H, dh)} kv{(B, S, G, dh)}: "
                 f"max|err| {err:.3e} ({share:.2f} of limit)")
-        if label in ("prefill", "moe prefill"):
+        if label in ("prefill", "moe prefill", "hybrid prefill"):
             ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal), flush, 20)
             plain = time_ms(torch, lambda: flash_attention_ref(q, k, v, causal), flush, 5)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -627,24 +666,25 @@ def kernel_flash_attention(torch, F, flush, randn, entries):
                     shape=f"q ({B}, {S}, {H}, {dh}) kv ({B}, {S}, {G}, {dh}) bf16 causal",
                     max_abs_err=err, max_err_share_of_limit=share, ms=ms,
                     plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
-            else:  # deepseek-moe-16b's prefill, beside granite-8b's
-                entries["flash_attention"].update(
-                    moe_prefill_shape=f"q ({B}, {S}, {H}, {dh}) kv ({B}, {S}, {G}, {dh})",
-                    moe_prefill_ms=ms, moe_prefill_plain_ms=plain,
-                    moe_prefill_library_ms=lib, moe_prefill_bound_ms=b_ms,
-                    moe_prefill_max_err_share_of_limit=share)
+            else:  # deepseek-moe-16b's and zamba2-7b's prefill, beside granite-8b's
+                key = label.replace(" ", "_")
+                entries["flash_attention"].update({
+                    f"{key}_shape": f"q ({B}, {S}, {H}, {dh}) kv ({B}, {S}, {G}, {dh})",
+                    f"{key}_ms": ms, f"{key}_plain_ms": plain, f"{key}_library_ms": lib,
+                    f"{key}_bound_ms": b_ms, f"{key}_bound_by": b_by,
+                    f"{key}_max_abs_err": err, f"{key}_max_err_share_of_limit": share})
         log(line)
-        if label == "prefill":  # one key's value lost: only the last row sees it
+        if label in ("prefill", "hybrid prefill"):  # one key's value lost: only the last row sees it
             v_bad = v.clone()
             v_bad[:, -1] = 0
-            check_rejects(torch, "flash_attention prefill, last key's value zeroed",
+            check_rejects(torch, f"flash_attention {label}, last key's value zeroed",
                           flash_attention(q, k, v_bad, causal),
                           flash_attention_ref(q, k, v, causal))
 
 
 def kernel_decode_attention(torch, F, flush, randn, entries):
-    """K3 flash decode at granite-8b's and deepseek-moe-16b's (rep 1)
-    decode shapes."""
+    """K3 flash decode at granite-8b's, deepseek-moe-16b's (rep 1) and
+    zamba2-7b's (rep 1, head_dim 112) decode shapes."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
@@ -654,6 +694,9 @@ def kernel_decode_attention(torch, F, flush, randn, entries):
             ("tail", (BATCH, 32, 8, 128, MAX_SEQ, MAX_SEQ - 1)),
             ("moe decode", (BATCH, 16, 16, 128, MAX_SEQ, cur_main)),
             ("moe tail", (BATCH, 16, 16, 128, MAX_SEQ, MAX_SEQ - 1)),
+            ("hybrid decode", (BATCH, 32, 32, 112, MAX_SEQ, cur_main)),
+            ("hybrid tail", (BATCH, 32, 32, 112, MAX_SEQ, MAX_SEQ - 1)),
+            ("hybrid ragged", (3, 6, 3, 112, 100, 70)),
             ("ragged", (3, 6, 3, 64, 100, 70)),
             ("tiny", (1, 8, 1, 64, 5, 0))):
         q, kc, vc = randn(B, H, dh), randn(B, T, G, dh), randn(B, T, G, dh)
@@ -662,7 +705,7 @@ def kernel_decode_attention(torch, F, flush, randn, entries):
                                   decode_attention_ref(q, kc, vc, cur))
         line = (f"decode_attention {label} q{(B, H, dh)} cache{(B, T, G, dh)} cur {cur}: "
                 f"max|err| {err:.3e} ({share:.2f} of limit)")
-        if label in ("decode", "moe decode"):
+        if label in ("decode", "moe decode", "hybrid decode"):
             ms = time_ms(torch, lambda: decode_attention(q, kc, vc, cur), flush, 50)
             plain = time_ms(torch, lambda: decode_attention_ref(q, kc, vc, cur), flush, 20)
             qs = q[:, :, None]
@@ -683,15 +726,16 @@ def kernel_decode_attention(torch, F, flush, randn, entries):
                     shape=f"q ({B}, {H}, {dh}) cache ({B}, {T}, {G}, {dh}) bf16 cur_index {cur}",
                     max_abs_err=err, max_err_share_of_limit=share, ms=ms,
                     plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
-            else:  # deepseek-moe-16b's decode, beside granite-8b's
-                entries["decode_attention"].update(
-                    moe_decode_shape=f"q ({B}, {H}, {dh}) cache ({B}, {T}, {G}, {dh})",
-                    moe_decode_ms=ms, moe_decode_plain_ms=plain,
-                    moe_decode_library_ms=lib, moe_decode_bound_ms=b_ms,
-                    moe_decode_max_err_share_of_limit=share)
+            else:  # deepseek-moe-16b's and zamba2-7b's decode, beside granite-8b's
+                key = label.replace(" ", "_")
+                entries["decode_attention"].update({
+                    f"{key}_shape": f"q ({B}, {H}, {dh}) cache ({B}, {T}, {G}, {dh})",
+                    f"{key}_ms": ms, f"{key}_plain_ms": plain, f"{key}_library_ms": lib,
+                    f"{key}_bound_ms": b_ms, f"{key}_bound_by": b_by,
+                    f"{key}_max_abs_err": err, f"{key}_max_err_share_of_limit": share})
         log(line)
-        if label == "decode":  # the newest key left out of the kernel's range
-            check_rejects(torch, "decode_attention decode, newest key dropped",
+        if label in ("decode", "hybrid decode"):  # the newest key left out of the kernel's range
+            check_rejects(torch, f"decode_attention {label}, newest key dropped",
                           decode_attention(q, kc, vc, cur - 1),
                           decode_attention_ref(q, kc, vc, cur))
 
@@ -865,26 +909,43 @@ def phase_drops(torch, cfg, params):
         f"(mean {statistics.mean(shares):.4f})")
 
 
-def phase_serve_rwkv(torch, kcommon):
-    """Full-width rwkv6-3b serving through the model-level API; returns
-    (cfg, params, launches)."""
+def rwkv_launches(cfg, steps):
+    """Launches of one rwkv6 prefill and ``steps`` decode steps: three norms
+    a layer and the final one each time, WKV6 once a layer in the prefill
+    (decode steps the recurrence as plain tensor code)."""
+    norms = 3 * cfg.num_layers + 1
+    return {"rmsnorm": norms * (1 + steps), "flash_attention": 0, "decode_attention": 0,
+            "wkv6": cfg.num_layers}
+
+
+def hybrid_launches(cfg, steps):
+    """Launches of one zamba2 prefill and ``steps`` decode steps: two norms a
+    Mamba2 layer and a shared-block invocation and the final one each time,
+    K1 once an invocation in the prefill, K3 once an invocation a step."""
+    groups = cfg.num_layers // cfg.attn_every
+    norms = 2 * cfg.num_layers + 2 * groups + 1
+    return {"rmsnorm": norms * (1 + steps), "flash_attention": groups,
+            "decode_attention": groups * steps, "wkv6": 0}
+
+
+def phase_serve_direct(torch, kcommon, cfg, expected):
+    """Full-width serving of ``cfg`` through the model-level API (``prefill``
+    into a preallocated state, then greedy ``decode_step``, the host reading
+    each token; ``ServeEngine`` refuses the RWKV and hybrid families as the
+    JAX engine does). ``expected(cfg, steps)`` gives the launches of a
+    prefill and ``steps`` decode steps. Returns (params, launches)."""
     import numpy as np
 
-    from repro_torch.configs.registry import get_config
-    from repro_torch.models import (decode_step, init_decode_state, init_params,
-                                    param_specs, prefill)
-    from repro_torch.serve.engine import serving_params
+    from repro_torch.models import decode_step, init_decode_state, prefill
 
-    cfg = get_config("rwkv6_3b")
     t0 = time.monotonic()
-    with torch.inference_mode():
-        params = serving_params(cfg, init_params(param_specs(cfg), seed=SEED, device="cuda"),
-                                torch.device("cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    params = serving_weights(torch, cfg)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    log(f"rwkv6-3b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.d_model // cfg.rwkv_head_dim} WKV heads of {cfg.rwkv_head_dim}, "
-        f"{cfg.param_count() / 1e9:.3f} B params; init + cast {time.monotonic() - t0:.1f} s")
+    log(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.param_count() / 1e9:.3f} B params; init + cast {time.monotonic() - t0:.1f} s, "
+        f"peak while building {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     rng = np.random.default_rng(SEED)
 
     @torch.inference_mode()
@@ -918,26 +979,23 @@ def phase_serve_rwkv(torch, kcommon):
     peak = torch.cuda.max_memory_allocated()
 
     steps = NEW_TOKENS - 1
-    per_norm = 3 * cfg.num_layers + 1
-    want_prefill = {"rmsnorm": per_norm, "flash_attention": 0, "decode_attention": 0,
-                    "wkv6": cfg.num_layers}
-    want = dict(want_prefill, rmsnorm=per_norm * (1 + steps))
+    want_prefill, want = expected(cfg, 0), expected(cfg, steps)
     if at_prefill != want_prefill or launches != want:
-        raise AssertionError(f"rwkv6-3b launch counts {at_prefill} after prefill, {launches} "
+        raise AssertionError(f"{cfg.name} launch counts {at_prefill} after prefill, {launches} "
                              f"after {steps} decode steps; want {want_prefill}, {want}")
     if tuple(tokens.shape) != (BATCH, NEW_TOKENS) or not bool(
             ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
-        raise AssertionError(f"rwkv6-3b: bad tokens {tokens}")
+        raise AssertionError(f"{cfg.name}: bad tokens {tokens}")
     if not bool(torch.isfinite(logits.float()).all()):
-        raise AssertionError("rwkv6-3b: non-finite logits")
-    log(f"rwkv serve: batch {BATCH} x prompt {PROMPT}, {NEW_TOKENS} new tokens each: "
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    log(f"{cfg.name} serve: batch {BATCH} x prompt {PROMPT}, {NEW_TOKENS} new tokens each: "
         f"prefill {prefill_s * 1e3:.2f} ms; decode {steps} steps in {decode_s * 1e3:.2f} ms "
         f"({decode_s / steps * 1e3:.3f} ms/step, {tokens.numel() / decode_s:.1f} tokens/s "
         f"as tokens out / decode wall); max_memory_allocated {peak / 2**30:.2f} GiB")
-    log(f"rwkv serve launches: {at_prefill} after prefill, {launches} in all "
+    log(f"{cfg.name} serve launches: {at_prefill} after prefill, {launches} in all "
         f"(expected {want_prefill}, {want})")
-    log(f"rwkv serve sample: sequence 0 generated {tokens[0, :8].tolist()} ...")
-    return cfg, params, launches
+    log(f"{cfg.name} serve sample: sequence 0 generated {tokens[0, :8].tolist()} ...")
+    return params, launches
 
 
 def phase_profile(torch, name, cfg, params):
@@ -999,7 +1057,7 @@ def plain_path():
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.kernels.wkv6.ref import wkv6_chunked
-    from repro_torch.models import rwkv6, transformer
+    from repro_torch.models import mamba2, rwkv6, transformer
 
     plain = {
         (transformer, "rms_norm"): rmsnorm_ref,
@@ -1007,6 +1065,9 @@ def plain_path():
         (transformer, "decode_attention"): decode_attention_ref,
         (rwkv6, "rms_norm"): rmsnorm_ref,
         (rwkv6, "wkv6"): wkv6_chunked,
+        (mamba2, "rms_norm"): rmsnorm_ref,
+        (mamba2, "attention"): flash_attention_ref,
+        (mamba2, "decode_attention"): decode_attention_ref,
     }
     saved = {key: getattr(*key) for key in plain}
     for (mod, name), fn in plain.items():
@@ -1070,17 +1131,27 @@ class RoutingReplay:
         return self._swap.__exit__(*exc)
 
 
-def phase_kernel_vs_plain(torch, name, cfg, params):
-    """2-layer cut at full width: kernel path vs plain path on the card
-    (the MoE family under the kernel path's routing, ``RoutingReplay``)."""
+def cut_params(cfg, params, n):
+    """The first ``n`` layers of ``cfg`` and of its parameters (views; the
+    hybrid's stacked leaves are its Mamba2 layers', its shared block whole)."""
+    stack = "mamba" if cfg.family == "hybrid" else "layers"
+    return cfg.replace(num_layers=n), dict(
+        params, **{stack: {k: v[:n] for k, v in params[stack].items()}})
+
+
+def phase_kernel_vs_plain(torch, name, cfg, params, layers=2, control=None):
+    """A ``layers``-layer cut at full width: kernel path vs plain path on the
+    card (the MoE family under the kernel path's routing, ``RoutingReplay``).
+    ``control``, (name, context), runs the kernel path under a fault that
+    the check must refuse at every step."""
     import numpy as np
 
     from repro_torch.models import decode_step, init_decode_state, prefill
 
-    cfg = cfg.replace(num_layers=2)
-    params = dict(params, layers={k: v[:2] for k, v in params["layers"].items()})
+    cfg, params = cut_params(cfg, params, layers)
     rng = np.random.default_rng(SEED + 1)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, PROMPT))).cuda()
+    cut = f"{name} {layers}-layer cut"
 
     def run():
         state = init_decode_state(cfg, BATCH, MAX_SEQ, device="cuda")
@@ -1101,25 +1172,36 @@ def phase_kernel_vs_plain(torch, name, cfg, params):
             kernel = run()
             with replay.replaying(), plain_path():
                 plain = run()
+            if control is not None:
+                with replay.replaying(), control[1]():
+                    faulty = run()
     if replay.kept:
-        log(f"{name} 2-layer cut: the plain path replays the kernel path's routing "
+        log(f"{cut}: the plain path replays the kernel path's routing "
             f"({len(replay.kept)} calls: prefill, then each decode step, layer by layer); "
             f"choices it would have made otherwise, per call: {replay.flips} of "
             f"{[int(k.numel()) for k in replay.kept]}")
     steps = ["prefill logits"] + [f"decode step {i} logits" for i in range(1, len(kernel))]
-    rows = [read_close(torch, f"{name} 2-layer {step}", a, b)
-            for step, a, b in zip(steps, kernel, plain)]
     rms = [float(b.float().pow(2).mean().sqrt()) for b in plain]
-    log(f"{name} 2-layer cut, kernels vs plain on the card (bf16, atol = rtol = {E2E_TOL}; "
-        f"prefill, then decode steps 1-{len(rows) - 1}): max|err| "
-        f"{[f'{r[0]:.3e}' for r in rows]}; worst element's share of atol + rtol |plain| "
-        f"{[f'{r[1]:.3f}' for r in rows]}; RMS(diff) / RMS(plain) "
-        f"{[f'{r[2]:.4f}' for r in rows]}; RMS of the plain logits "
-        f"{[f'{r:.3f}' for r in rms]}")
-    failed = [step for step, r in zip(steps, rows) if not r[3]]
-    if failed:  # every reading is printed first
-        raise AssertionError(f"{name} 2-layer cut: {failed} over the allclose limit "
-                             f"atol = rtol = {E2E_TOL}")
+
+    def readings(tag, outs):
+        rows = [read_close(torch, f"{cut} {step}", a, b)
+                for step, a, b in zip(steps, outs, plain)]
+        log(f"{cut}, {tag} vs plain on the card (bf16, atol = rtol = {E2E_TOL}; "
+            f"prefill, then decode steps 1-{len(rows) - 1}): max|err| "
+            f"{[f'{r[0]:.3e}' for r in rows]}; worst element's share of atol + rtol |plain| "
+            f"{[f'{r[1]:.3f}' for r in rows]}; RMS(diff) / RMS(plain) "
+            f"{[f'{r[2]:.4f}' for r in rows]}; RMS of the plain logits "
+            f"{[f'{r:.3f}' for r in rms]}")
+        return [step for step, r in zip(steps, rows) if r[3]]
+
+    held = readings("kernels", kernel)
+    let_through = readings(f"control ({control[0]})", faulty) if control else []
+    if held != steps or let_through:  # every reading is printed first
+        raise AssertionError(f"{cut}: {sorted(set(steps) - set(held))} over the allclose "
+                             f"limit atol = rtol = {E2E_TOL}; the control let through "
+                             f"{let_through}")
+    if control:
+        log(f"  control {cut} ({control[0]}): refused at every step")
 
 
 def leaf_paths(tree, prefix=""):
@@ -1132,10 +1214,19 @@ def leaf_paths(tree, prefix=""):
 def expected_train_launches(cfg):
     """Kernel launches of one train step with remat: each forward kernel in
     the forward and again in its layer's recompute; the final norm, outside
-    the layers, once."""
+    the layers, once. The hybrid nests its remat as the reference does: a
+    Mamba2 layer inside a group of ``attn_every`` runs forward three times
+    (the forward, the group's recompute, its own recompute), the shared
+    block and a tail layer twice."""
+    want = {"rmsnorm": 1, "flash_attention": 0, "decode_attention": 0, "wkv6": 0}
+    if cfg.family == "hybrid":
+        groups = cfg.num_layers // cfg.attn_every
+        tail = cfg.num_layers - groups * cfg.attn_every
+        want["rmsnorm"] += 2 * (3 * groups * cfg.attn_every + 2 * groups + 2 * tail)
+        want["flash_attention"] = 2 * groups
+        return want
     per_layer = ({"rmsnorm": 3, "wkv6": 1} if cfg.family == "rwkv"
                  else {"rmsnorm": 2, "flash_attention": 1})
-    want = {"rmsnorm": 1, "flash_attention": 0, "decode_attention": 0, "wkv6": 0}
     for name, n in per_layer.items():
         want[name] += 2 * n * cfg.num_layers
     return want
@@ -2628,16 +2719,17 @@ def phase_ops_chaos(smi):
         raise AssertionError(f"ops/chaos (a): {bad}; trace spans {n_spans}")
 
 
-def phase_train_vs_plain(torch, label, cfg, control_name, control, prefix=0):
-    """A 2-layer full-width cut: one train step's loss, gradients and grad
-    norm, kernel path against plain path (the MoE family under the kernel
-    path's routing, ``RoutingReplay``), and a negative control that must be
-    refused."""
+def phase_train_vs_plain(torch, label, cfg, control_name, control, prefix=0, layers=2):
+    """A ``layers``-layer full-width cut: one train step's loss, gradients
+    and grad norm, kernel path against plain path (the MoE family under the
+    kernel path's routing, ``RoutingReplay``), and a negative control that
+    must be refused."""
     from repro_torch.models import init_params, param_specs
     from repro_torch.models.common import tree_leaves
     from repro_torch.train import global_norm, loss_and_grads
 
-    cfg = cfg.replace(num_layers=2)
+    cfg = cfg.replace(num_layers=layers)
+    label = f"{label} {layers}-layer train step"
     params = init_params(param_specs(cfg), seed=SEED + 2, device="cuda")
     batch = train_batch(torch, cfg, prefix, seed=SEED + 1)
     names = leaf_paths(params)
@@ -2651,7 +2743,7 @@ def phase_train_vs_plain(torch, label, cfg, control_name, control, prefix=0):
         with replay.replaying(), plain_path():
             p_loss, p_grads, p_norm = run()
         if replay.kept:
-            log(f"{label} 2-layer train step: the plain path replays the kernel path's "
+            log(f"{label}: the plain path replays the kernel path's "
                 f"routing ({len(replay.kept)} calls: each layer's forward, then its "
                 f"recompute in the backward); choices it would have made otherwise, per "
                 f"call: {replay.flips} of {[int(k.numel()) for k in replay.kept]}")
@@ -2669,7 +2761,7 @@ def phase_train_vs_plain(torch, label, cfg, control_name, control, prefix=0):
         loss_rel = abs(loss - p_loss) / abs(p_loss)
         norm_rel = abs(gnorm - p_norm) / p_norm
         worst = max(r[3] for r in rows)
-        log(f"{label} 2-layer train step, {tag} vs plain: loss {loss:.6f} vs {p_loss:.6f} "
+        log(f"{label}, {tag} vs plain: loss {loss:.6f} vs {p_loss:.6f} "
             f"(rel {loss_rel:.3e}, bound {TRAIN_LOSS_RTOL}); grad_norm {gnorm:.6f} vs "
             f"{p_norm:.6f} (rel {norm_rel:.3e}, bound {GRAD_NORM_RTOL}); worst leaf "
             f"RMS(diff)/RMS(plain) {worst:.4e} (bound {GRAD_RMS_TOL})")
@@ -2682,7 +2774,7 @@ def phase_train_vs_plain(torch, label, cfg, control_name, control, prefix=0):
     kernel_ok = readings("kernels", kernel)
     control_ok = readings(f"control ({control_name})", control_run)
     if not kernel_ok or control_ok:  # every reading is printed first
-        raise AssertionError(f"{label} 2-layer train step: kernels within bounds {kernel_ok}, "
+        raise AssertionError(f"{label}: kernels within bounds {kernel_ok}, "
                              f"control ({control_name}) within bounds {control_ok}")
     log(f"  control {label} ({control_name}): refused")
 
@@ -2709,6 +2801,48 @@ def control_k4_time_reversed():
     return swapped(wkv_ops, "wkv6_bwd", wrap)
 
 
+@contextlib.contextmanager
+def control_heads_rolled():
+    """The hybrid's shared block with each head's K1 and K3 output moved onto
+    the next head (the kernels run as they are; their outputs are
+    permuted)."""
+    from repro_torch.models import mamba2
+
+    with swapped(mamba2, "attention",
+                 lambda fn: lambda *a, **kw: fn(*a, **kw).roll(1, dims=2)), \
+            swapped(mamba2, "decode_attention",
+                    lambda fn: lambda *a: fn(*a).roll(1, dims=1)):
+        yield
+
+
+def phase_hybrid(torch, kcommon, paths, skip_serving, free, done):
+    """Phase 15: zamba2-7b served at full width and depth (a, unless
+    ``skip_serving``), its 7-layer cut trained (b) and held kernels vs plain
+    (c); adds the paths' launches to ``paths``."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("zamba2_7b")
+    cut = cfg.replace(num_layers=HYBRID_TRAIN_LAYERS)
+    if not skip_serving:  # (a) full width and depth, and its profile
+        params, paths["zamba2-7b"] = phase_serve_direct(torch, kcommon, cfg, hybrid_launches)
+        phase_profile(torch, "zamba2-7b", cfg, params)
+        del params
+        free()
+    # (b) the 7-layer cut's training
+    paths["zamba2-7b train"], _ = phase_train(torch, kcommon, "zamba2-7b", cut)
+    free()
+    # (c) the same cut, kernels vs plain: serving, then one train step
+    phase_kernel_vs_plain(torch, "zamba2-7b", cut, serving_weights(torch, cut),
+                          layers=HYBRID_TRAIN_LAYERS,
+                          control=("each head's K1 and K3 output moved onto the next head",
+                                   control_heads_rolled))
+    free()
+    phase_train_vs_plain(torch, "zamba2-7b", cfg, "K1 backward without the causal mask",
+                         control_k1_without_mask, layers=HYBRID_TRAIN_LAYERS)
+    free()
+    done(15)
+
+
 def main() -> int:
     import argparse
 
@@ -2717,9 +2851,11 @@ def main() -> int:
                     help="comma-separated kernel names: build and check only "
                          "these (phases 1-3) and skip the serving phases")
     ap.add_argument("--skip-serving", action="store_true",
-                    help="run phases 1-3, 6-13 and 14 (b, c) only")
+                    help="run phases 1-3, 6-13, 14 (b, c) and 15 (b, c) only")
     ap.add_argument("--only-moe", action="store_true",
                     help="run phases 1-3 and 14 only")
+    ap.add_argument("--only-hybrid", action="store_true",
+                    help="run phases 1-3 and 15 only")
     args = ap.parse_args()
     import torch
 
@@ -2784,7 +2920,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     paths = {}  # path -> its launches
-    if not (args.skip_serving or args.only_moe):
+    only = args.only_moe or args.only_hybrid
+    if not (args.skip_serving or only):
         # -- 4. granite-8b at full width, its profile and its 2-layer cut -----------------
         engine, paths["granite-8b"] = phase_serve(torch, kcommon, get_config("granite_8b"))
         phase_profile(torch, "granite-8b", engine.cfg, engine.params)
@@ -2794,18 +2931,46 @@ def main() -> int:
         done(4)
 
         # -- 5. rwkv6-3b at full width, its profile and its 2-layer cut -------------------
-        cfg, params, paths["rwkv6-3b"] = phase_serve_rwkv(torch, kcommon)
+        cfg = get_config("rwkv6_3b")
+        params, paths["rwkv6-3b"] = phase_serve_direct(torch, kcommon, cfg, rwkv_launches)
         phase_profile(torch, "rwkv6-3b", cfg, params)
         phase_kernel_vs_plain(torch, "rwkv6-3b", cfg, params)
         del cfg, params
         free()
         done(5)
 
-    if not args.only_moe:
+    if not only:
         phases_6_to_13(torch, kcommon, paths, smi, free, done)
-
     # -- 14. the MoE family and the vision prefix -------------------------------------------
-    if not args.skip_serving:  # (a) deepseek-moe-16b at full width and depth
+    if not args.only_hybrid:
+        phase_moe(torch, kcommon, paths, args.skip_serving, free, done)
+
+    # -- 15. the Mamba2 / Zamba2 hybrid ------------------------------------------------------
+    if not args.only_moe:
+        phase_hybrid(torch, kcommon, paths, args.skip_serving, free, done)
+
+    # launches: each kernel's count on the serving path it was ported for
+    # (granite-8b for K1-K3, rwkv6-3b for K4; their training paths with
+    # --skip-serving, the MoE or hybrid paths with --only-moe or
+    # --only-hybrid), and each path's count beside it
+    for kname, e in entries.items():
+        path = "rwkv6-3b" if kname == "wkv6" else "granite-8b"
+        e["launches_path"] = next(p for p in (path, f"{path} train", *paths) if p in paths)
+        e["launches"] = paths[e["launches_path"]][kname]
+        e["launches_by_path"] = {p: launches[kname] for p, launches in paths.items()}
+
+    log(smi)
+    log(json.dumps({"kernels": [entries[k] for k in kcommon.KERNELS]}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
+    return 0
+
+
+def phase_moe(torch, kcommon, paths, skip_serving, free, done):
+    """Phase 14: the MoE family and the vision prefix; adds the paths'
+    launches to ``paths``."""
+    from repro_torch.configs.registry import get_config
+
+    if not skip_serving:  # (a) deepseek-moe-16b at full width and depth
         engine, paths["deepseek-moe-16b"] = phase_serve(torch, kcommon,
                                                         get_config("deepseek_moe_16b"))
         phase_drops(torch, engine.cfg, engine.params)
@@ -2824,21 +2989,6 @@ def main() -> int:
                          control_k1_without_mask, prefix=VL_PREFIX)
     free()
     done(14)
-
-    # launches: each kernel's count on the serving path it was ported for
-    # (granite-8b for K1-K3, rwkv6-3b for K4; their training paths with
-    # --skip-serving, the MoE paths with --only-moe), and each path's count
-    # beside it
-    for kname, e in entries.items():
-        path = "rwkv6-3b" if kname == "wkv6" else "granite-8b"
-        e["launches_path"] = next(p for p in (path, f"{path} train", *paths) if p in paths)
-        e["launches"] = paths[e["launches_path"]][kname]
-        e["launches_by_path"] = {p: launches[kname] for p, launches in paths.items()}
-
-    log(smi)
-    log(json.dumps({"kernels": [entries[k] for k in kcommon.KERNELS]}))
-    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
-    return 0
 
 
 def phases_6_to_13(torch, kcommon, paths, smi, free, done):

@@ -12,7 +12,7 @@ from repro_torch.models.config import ModelConfig
 
 ARCH_IDS: List[str] = [
     "rwkv6_3b", "granite_8b", "deepseek_moe_16b", "qwen3_moe_235b_a22b",
-    "internvl2_76b",
+    "internvl2_76b", "zamba2_7b",
     # the paper's own end-to-end training target
     "qwen3_vl_30b_a3b",
 ]
@@ -23,6 +23,7 @@ _ALIASES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "internvl2-76b": "internvl2_76b",
+    "zamba2-7b": "zamba2_7b",
     "qwen3-vl-30b-a3b": "qwen3_vl_30b_a3b",
 }
 

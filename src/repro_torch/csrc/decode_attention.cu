@@ -31,6 +31,12 @@
 //   and there is no second kernel.
 // cur_index arrives as a host int, so no CTA is launched past it and the
 // ragged tail of the last tile is masked: T need not divide any tile.
+// Head dim 112 (zamba2-7b's shared block) runs the dh-128 kernel: the TMA
+// box is 128 columns wide over the 112-wide cache, and the unit zero-fills
+// columns 112-127 (past the map's first dimension, never the next head's);
+// the lanes of those columns load no q and add zeros, and the output is
+// stored at 112 columns a head. 16 lanes a key, as at dh 128, keep the
+// power-of-two shuffles.
 // At the serving shape: 64 clusters of 8 CTAs, each CTA 4 tiles of 32 keys,
 // 32 KB of ring at dh 128; 4-5 CTAs per SM, so all 512 are resident at once.
 // ptxas (CUDA 12.9, sm_90a): 95 registers at rep 4 (40 / 64 / 167 at rep 1 /
@@ -87,7 +93,9 @@ __device__ __forceinline__ void unpack8(const uint4& raw, float (&f)[8]) {
     }
 }
 
-template <int D, int REP>
+// D is the width the ring and the lanes are laid out at, DV <= D the head
+// dim of q, the caches and the output.
+template <int D, int DV, int REP>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map,
               const bf16* __restrict__ q, bf16* __restrict__ out, int H, int G, int n_valid,
@@ -96,6 +104,7 @@ decode_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__
     constexpr int kLanesPerKey = D / 8;                    // 16-byte chunks per key row
     constexpr int kKeysPerPass = kThreads / kLanesPerKey;  // keys a block touches at once
     static_assert(kTile % kKeysPerPass == 0 && kLanesPerKey <= 32, "even trip counts");
+    static_assert(DV <= D && DV % 8 == 0, "whole 16-byte chunks of a head");
     extern __shared__ uint8_t smem_raw[];
     uint8_t* smem = smem_raw + ((128u - ((uint32_t)__cvta_generic_to_shared(smem_raw) & 127u)) & 127u);
     float* sc = reinterpret_cast<float*>(smem + L::kScores);
@@ -141,11 +150,13 @@ decode_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__
     if (tid == 0)
         for (int i = 0; i < min(kStages, my_tiles); ++i) load_tile(i);
 
-    // This thread's 8 dims of the REP query heads, scaled into the log2 domain.
+    // This thread's 8 dims of the REP query heads, scaled into the log2
+    // domain (zeros past DV).
     float qr[REP][8];
 #pragma unroll
     for (int r = 0; r < REP; ++r) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(q + ((size_t)b * H + g * REP + r) * D + c0);
+        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+        if (c0 < DV) raw = *reinterpret_cast<const uint4*>(q + ((size_t)b * H + g * REP + r) * DV + c0);
         unpack8(raw, qr[r]);
 #pragma unroll
         for (int j = 0; j < 8; ++j) qr[r][j] *= scale_log2;
@@ -262,7 +273,8 @@ decode_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__
     // w_c = 2^(m_c - max m). Each CTA writes every n_rank-th share.
     cluster.sync();
     for (int e = rank * kThreads + tid; e < REP * D; e += n_rank * kThreads) {
-        const int r = e / D;
+        const int r = e / D, d = e % D;
+        if (d >= DV) continue;  // zero pad
         float mx = -INFINITY;
         for (int c = 0; c < n_rank; ++c) mx = fmaxf(mx, *cluster.map_shared_rank(m_s + r, c));
         float num = 0.f, den = 0.f;
@@ -271,20 +283,20 @@ decode_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__
             den += w * *cluster.map_shared_rank(l_s + r, c);
             num += w * *cluster.map_shared_rank(part_o + e, c);
         }
-        out[((size_t)b * H + g * REP) * D + e] = __float2bfloat16(num / den);
+        out[((size_t)b * H + g * REP + r) * DV + d] = __float2bfloat16(num / den);
     }
     cluster.sync();  // no CTA leaves while another still reads its shared memory
 }
 
-template <int D, int REP>
+template <int D, int DV, int REP>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int T, int H, int G,
            int n_valid, int n_tiles, int cluster, float scale_log2, cudaStream_t st) {
     CUtensorMap k_map, v_map;
-    if (!make_map(&k_map, k, B, T, G, D, D, kTile, CU_TENSOR_MAP_SWIZZLE_NONE) ||
-        !make_map(&v_map, v, B, T, G, D, D, kTile, CU_TENSOR_MAP_SWIZZLE_NONE))
+    if (!make_map(&k_map, k, B, T, G, DV, D, kTile, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+        !make_map(&v_map, v, B, T, G, DV, D, kTile, CU_TENSOR_MAP_SWIZZLE_NONE))
         return static_cast<int>(cudaErrorInvalidValue);
     const int bytes = Layout<D, REP>::kBytes;
-    cudaError_t err = cudaFuncSetAttribute(decode_kernel<D, REP>,
+    cudaError_t err = cudaFuncSetAttribute(decode_kernel<D, DV, REP>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaLaunchAttribute attr[1];
@@ -299,20 +311,20 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int T, i
     cfg.stream = st;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, decode_kernel<D, REP>, k_map, v_map, q, o, H, G, n_valid,
+    err = cudaLaunchKernelEx(&cfg, decode_kernel<D, DV, REP>, k_map, v_map, q, o, H, G, n_valid,
                              n_tiles, scale_log2);
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int DV>
 int launch_rep(int rep, const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int T, int H,
                int G, int n_valid, int n_tiles, int cluster, float scale_log2, cudaStream_t st) {
     switch (rep) {
-        case 1: return launch<D, 1>(q, k, v, o, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
-        case 2: return launch<D, 2>(q, k, v, o, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
-        case 4: return launch<D, 4>(q, k, v, o, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
-        case 8: return launch<D, 8>(q, k, v, o, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
+        case 1: return launch<D, DV, 1>(q, k, v, o, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
+        case 2: return launch<D, DV, 2>(q, k, v, o, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
+        case 4: return launch<D, DV, 4>(q, k, v, o, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
+        case 8: return launch<D, DV, 8>(q, k, v, o, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -322,7 +334,7 @@ int launch_rep(int rep, const bf16* q, const bf16* k, const bf16* v, bf16* o, in
 // q: (B, H, dh) bf16; k/v: (B, T, G, dh) bf16; o: (B, H, dh) bf16; positions
 // [0, n_valid) are attended, cut into n_tiles = ceil(n_valid / kTile) tiles
 // shared by `cluster` CTAs per (b, g), 1 <= cluster <= min(kMaxCluster,
-// n_tiles). dh in {64, 128}, H / G in {1, 2, 4, 8} (the Python wrapper
+// n_tiles). dh in {64, 112, 128}, H / G in {1, 2, 4, 8} (the Python wrapper
 // checks and plans).
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
                                     int T, int H, int G, int dh, int n_valid, int n_tiles,
@@ -338,8 +350,10 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
     const float scale_log2 = scale * kLog2e;
     const int rep = H / G;
     if (dh == 128)
-        return launch_rep<128>(rep, qp, kp, vp, op, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
+        return launch_rep<128, 128>(rep, qp, kp, vp, op, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
+    if (dh == 112)
+        return launch_rep<128, 112>(rep, qp, kp, vp, op, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
     if (dh == 64)
-        return launch_rep<64>(rep, qp, kp, vp, op, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
+        return launch_rep<64, 64>(rep, qp, kp, vp, op, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }

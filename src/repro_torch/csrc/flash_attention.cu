@@ -29,6 +29,12 @@
 //   swizzle (csrc/hopper.cuh), so a dh-128 row is two boxes and a tile is
 //   dh/64 regions of 128 rows x 128 bytes. Rows past S or T are zero-filled
 //   by the TMA unit; keys past T are masked to -inf.
+// - Head dim 112 (zamba2-7b's 3584 / 32) runs the dh-128 kernel over a
+//   112-wide tensor map: the second box covers columns 64-127 of a row, and
+//   the TMA unit zero-fills 112-127, past the map's first dimension (never
+//   the next head's values). With that zero pad Q K^T and P V are exact, and
+//   the epilogue stores columns 0-111 only: in the contiguous output,
+//   columns 112-127 of a row are the next head's first 16 values.
 // - S = Q K^T: wgmma m64n128k16, both operands K-major in swizzled shared
 //   memory. O += P V: P is the fp32 S accumulator, rescaled and packed to
 //   bf16 in registers as the A operand; V is an MN-major B operand (the
@@ -42,7 +48,8 @@
 // - Causal: key tiles past the diagonal are never loaded and only tiles that
 //   cut it are masked.
 // Shared memory: Q 128 x dh + 2 stages x (K + V) 128 x dh, bf16, plus 10
-// mbarriers: 164,944 bytes at dh 128, 83,024 at dh 64 (dynamic).
+// mbarriers: 164,944 bytes at dh 128 (and at dh 112, padded), 83,024 at dh
+// 64 (dynamic).
 // ptxas (CUDA 12.9, sm_90a): 168 registers a thread at launch for both dh
 // (the consumers raise theirs to 240), no spills, 16 named barriers. The
 // mma.sync kernel this replaces took 168 registers and 34,816 bytes of
@@ -265,10 +272,12 @@ __device__ __forceinline__ void pack_p(const float (&sc)[kBlockK / 2], uint32_t 
     }
 }
 
-template <int D>
+// S = Q K^T over the first DK columns (the head dim: at dh 112 the last k16
+// step would multiply zero pad only, and is skipped).
+template <int DK>
 __device__ __forceinline__ void start_qk(float (&sc)[kBlockK / 2], uint32_t q_tile, uint32_t ks) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DK / 16; ++kk) {
         const uint32_t col = (kk % 4) * 32;  // a k16 step is 32 bytes of a 128-byte row
         const uint64_t da = sw128_desc(q_tile + (kk / 4) * kBlockQ * kBoxBytes + col, 16, 1024);
         const uint64_t db = sw128_desc(ks + (kk / 4) * kBlockK * kBoxBytes + col, 16, 1024);
@@ -289,14 +298,17 @@ __device__ __forceinline__ void start_pv(float (&acc)[D / 2], const uint32_t (&p
 // Persistent: gridDim.x blocks walk the n_items = n_qt * H * B work items
 // (item, item + gridDim.x, ...). The K and V rings, and their phases, run on
 // across items; the producer loads the next item's Q as soon as the
-// consumers' last Q K^T of the current item is done.
-template <int D>
+// consumers' last Q K^T of the current item is done. D is the width the
+// tiles are laid out and multiplied at, DV <= D the head dim of the tensors
+// (the columns past DV arrive as zeros and are not stored).
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
               const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o, int B, int S,
               int T, int H, int G, float scale_log2, int causal) {
     using L = Layout<D>;
     constexpr int kChunks = D / 64;  // TMA boxes (128-byte column blocks) per row
+    static_assert(DV <= D && DV % 8 == 0, "stored columns: whole 8-column groups");
     extern __shared__ uint8_t smem_raw[];
     const uint32_t base = ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
     const uint32_t sq = base + L::kQ, sk = base + L::kK, sv = base + L::kV;
@@ -388,7 +400,7 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__
                 mbar_wait(k_full(s), (ring / kStages) & 1);
                 turn_wait(cw);
                 wg_fence();
-                start_qk<D>(sc, q_tile, sk + s * L::kTileBytes);
+                start_qk<DV>(sc, q_tile, sk + s * L::kTileBytes);
                 turn_pass(cw);
                 wg_wait_all();
                 reg_fence(sc);
@@ -406,7 +418,7 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__
                 mbar_wait(v_full(sp), ((ring + kt - 1) / kStages) & 1);
                 turn_wait(cw);
                 wg_fence();
-                start_qk<D>(sc, q_tile, sk + s * L::kTileBytes);
+                start_qk<DV>(sc, q_tile, sk + s * L::kTileBytes);
                 start_pv<D>(acc, pa, sv + sp * L::kTileBytes);
                 turn_pass(cw);
                 asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // S_kt done
@@ -444,15 +456,15 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__
 
             const float inv_a = 1.f / fmaxf(l_run[0], 1e-30f);
             const float inv_b = 1.f / fmaxf(l_run[1], 1e-30f);
-            bf16* ob = o + ((size_t)it.b * S * H + it.h) * D;
+            bf16* ob = o + ((size_t)it.b * S * H + it.h) * DV;
 #pragma unroll
-            for (int j = 0; j < D / 8; ++j) {
+            for (int j = 0; j < DV / 8; ++j) {  // columns past DV are zero pad
                 const int c = 8 * j + 2 * tq;
                 if (row_a < S)
-                    *reinterpret_cast<uint32_t*>(ob + (size_t)row_a * H * D + c) =
+                    *reinterpret_cast<uint32_t*>(ob + (size_t)row_a * H * DV + c) =
                         pack_bf16(acc[4 * j] * inv_a, acc[4 * j + 1] * inv_a);
                 if (row_b < S)
-                    *reinterpret_cast<uint32_t*>(ob + (size_t)row_b * H * D + c) =
+                    *reinterpret_cast<uint32_t*>(ob + (size_t)row_b * H * DV + c) =
                         pack_bf16(acc[4 * j + 2] * inv_b, acc[4 * j + 3] * inv_b);
             }
         }
@@ -462,17 +474,17 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__
 
 // ---- host side ------------------------------------------------------------------
 
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, bf16* o, int B, int S, int T, int H,
            int G, float scale_log2, int causal, cudaStream_t st) {
     CUtensorMap q_map, k_map, v_map;
     const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
-    if (!make_map(&q_map, q, B, S, H, D, 64, kBlockQ, sw) ||
-        !make_map(&k_map, k, B, T, G, D, 64, kBlockK, sw) ||
-        !make_map(&v_map, v, B, T, G, D, 64, kBlockK, sw))
+    if (!make_map(&q_map, q, B, S, H, DV, 64, kBlockQ, sw) ||
+        !make_map(&k_map, k, B, T, G, DV, 64, kBlockK, sw) ||
+        !make_map(&v_map, v, B, T, G, DV, 64, kBlockK, sw))
         return static_cast<int>(cudaErrorInvalidValue);
     const int bytes = Layout<D>::kBytes;
-    cudaError_t err = cudaFuncSetAttribute(fa_fwd_kernel<D>,
+    cudaError_t err = cudaFuncSetAttribute(fa_fwd_kernel<D, DV>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     int device = 0, n_sm = 0;
@@ -481,22 +493,23 @@ int launch(const void* q, const void* k, const void* v, bf16* o, int B, int S, i
         return static_cast<int>(err);
     const long long n_items = (long long)((S + kBlockQ - 1) / kBlockQ) * H * B;
     const int grid = (int)(n_items < n_sm ? n_items : n_sm);  // one persistent block per SM
-    fa_fwd_kernel<D><<<grid, kThreads, bytes, st>>>(q_map, k_map, v_map, o, B, S, T, H, G,
-                                                    scale_log2, causal);
+    fa_fwd_kernel<D, DV><<<grid, kThreads, bytes, st>>>(q_map, k_map, v_map, o, B, S, T, H, G,
+                                                        scale_log2, causal);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q: (B, S, H, dh), k/v: (B, T, G, dh), o: (B, S, H, dh); all bf16, contiguous,
-// 16-byte aligned; dh in {64, 128}; H % G == 0 (the Python wrapper checks).
+// 16-byte aligned; dh in {64, 112, 128}; H % G == 0 (the Python wrapper checks).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int B, int S, int T, int H, int G, int dh, float scale,
                                    int causal, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const float scale_log2 = scale * kLog2e;
     bf16* op = static_cast<bf16*>(o);
-    if (dh == 128) return launch<128>(q, k, v, op, B, S, T, H, G, scale_log2, causal, st);
-    if (dh == 64) return launch<64>(q, k, v, op, B, S, T, H, G, scale_log2, causal, st);
+    if (dh == 128) return launch<128, 128>(q, k, v, op, B, S, T, H, G, scale_log2, causal, st);
+    if (dh == 112) return launch<128, 112>(q, k, v, op, B, S, T, H, G, scale_log2, causal, st);
+    if (dh == 64) return launch<64, 64>(q, k, v, op, B, S, T, H, G, scale_log2, causal, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -16,7 +16,8 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"decode_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                       _I, _I, ctypes.c_float, _P]}
-HEAD_DIMS = (64, 128)
+#: 112 (zamba2-7b's shared block) runs the dh-128 kernel over a zero pad
+HEAD_DIMS = (64, 112, 128)
 REPS = (1, 2, 4, 8)
 #: keys per copy stage; must equal kTile in csrc/decode_attention.cu
 TILE = 32

@@ -19,7 +19,8 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      ctypes.c_float, _I, _P]}
-HEAD_DIMS = (64, 128)
+#: 112 (zamba2-7b's shared block) runs the dh-128 kernel over a zero pad
+HEAD_DIMS = (64, 112, 128)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,5 +1,5 @@
 """Family dispatch (port of ``repro.models.model``): one API over the ported
-architecture families — ``dense``, ``moe``, ``vlm`` and ``rwkv``.
+architecture families — ``dense``, ``moe``, ``vlm``, ``rwkv`` and ``hybrid``.
 
   param_specs(cfg)                         -> ParamSpec tree
   forward(cfg, params, batch)              -> (logits, aux)
@@ -19,23 +19,23 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import mamba2, rwkv6, transformer
 from repro_torch.models.common import resolve_device, softmax_cross_entropy
 from repro_torch.models.config import ModelConfig
 
 #: where each family that is not ported yet stands in ROADMAP.md, Queue 1
 _NOT_PORTED = {
-    "hybrid": "item 5: Mamba2 / Zamba2",
     "audio": "item 6: frontends (audio codebooks)",
 }
 _PORTED = {"dense": transformer, "moe": transformer, "vlm": transformer,
-           "rwkv": rwkv6}
+           "rwkv": rwkv6, "hybrid": mamba2}
 
 
 def _inputs(cfg: ModelConfig, batch: Dict):
     """(tokens, kwargs of the family's forward / prefill): the transformer
     families take the ``frontend_embeds`` prefix; the audio frontend's is
-    refused until its codebooks are ported, and RWKV has no prefix."""
+    refused until its codebooks are ported, and RWKV and the hybrid have no
+    prefix."""
     fe = batch.get("frontend_embeds")
     if fe is None:
         return batch["tokens"], {}

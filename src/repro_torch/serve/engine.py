@@ -35,11 +35,13 @@ _DENSE_CAST = ("embed", "unembed", "wq", "wk", "wv", "wo", "bq", "bk", "bv",
                "w_gate", "w_up", "w_down")
 #: per family, the leaves the JAX model casts to compute_dtype on use (RWKV6
 #: keeps w0 and u fp32, as JAX casts them to float32, the MoE router stays
-#: fp32, as JAX routes in float32, and so does every norm scale)
+#: fp32, as JAX routes in float32, the hybrid's A_log, dt_bias and D_skip
+#: stay fp32, as JAX reads them in float32, and so does every norm scale)
 _CAST_ON_LOAD = {
     "dense": _DENSE_CAST,
     "moe": _DENSE_CAST + ("sh_gate", "sh_up", "sh_down"),
     "vlm": _DENSE_CAST,
+    "hybrid": _DENSE_CAST + ("in_proj", "conv_w", "conv_b", "out_proj"),
     "rwkv": ("embed", "unembed", "w_r", "w_k", "w_v", "w_g", "w_o", "mix_w1",
              "mix_w2", "mu_base", "mu_rkvgw", "decay_w1", "decay_w2", "cm_k",
              "cm_v", "cm_r", "cm_mu_k", "cm_mu_r"),

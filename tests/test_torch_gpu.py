@@ -140,6 +140,12 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape):
     # training sequence, 1024 tokens after a 128-frame prefix (rep 8)
     (8, 1000, 1000, 16, 16, 128, True),
     (4, 1152, 1152, 32, 4, 128, True),
+    # head_dim 112, zero-padded to 128 in the kernel: zamba2-7b's prefill
+    # (rep 1), ragged S and T, rep 4 without causality, one row
+    (8, 1000, 1000, 32, 32, 112, True),
+    (2, 45, 45, 4, 4, 112, True),
+    (1, 200, 333, 8, 2, 112, False),
+    (1, 1, 1, 2, 2, 112, True),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, S, T, H, G, dh, causal):
     gen = torch.Generator(device=cuda).manual_seed(1)
@@ -167,6 +173,13 @@ def test_flash_attention_kernel_matches_plain(cuda, B, S, T, H, G, dh, causal):
     # deepseek-moe-16b's decode (rep 1) over the 1032-position cache
     (8, 16, 16, 128, 1032, 1015),
     (8, 16, 16, 128, 1032, 1031),
+    # head_dim 112: zamba2-7b's decode (rep 1), its cache's last position,
+    # a ragged tail, rep 8 over whole tiles, one key
+    (8, 32, 32, 112, 1032, 1015),
+    (8, 32, 32, 112, 1032, 1031),
+    (3, 6, 3, 112, 100, 70),
+    (2, 8, 1, 112, 300, 8 * TILE - 1),
+    (1, 4, 4, 112, 5, 0),
 ])
 def test_decode_attention_kernel_matches_plain(cuda, B, H, G, dh, T, cur):
     gen = torch.Generator(device=cuda).manual_seed(2)
@@ -399,6 +412,92 @@ def test_rwkv6_on_the_card_launches_the_kernels_and_matches_the_cpu(cuda):
         _assert_close(a.cpu(), b)
 
 
+#: zamba2-7b's layout at a narrow width: head_dim 112 (448 / 4, rep 1), one
+#: group of two Mamba2 layers and the shared block, then a tail layer
+_ZAMBA2_NARROW = ModelConfig(
+    name="zamba2-narrow", family="hybrid", num_layers=3, d_model=448,
+    num_heads=4, num_kv_heads=4, d_ff=512, vocab_size=512, ssm_state=16,
+    ssm_head_dim=64, ssm_expand=2, attn_every=2, rope_theta=1e4)
+
+
+def test_hybrid_on_the_card_launches_the_kernels_and_matches_the_cpu(cuda):
+    """The narrow hybrid: prefill through K1 (head_dim 112) and K2, three
+    decode steps through K3 and K2, the recurrent states and KV caches
+    after them, all against the CPU port at 4e-2."""
+    cfg = _ZAMBA2_NARROW
+    assert cfg.head_dim == 112
+    cpu_params = serving_params(cfg, init_params(param_specs(cfg), seed=0,
+                                                 device="cpu"), torch.device("cpu"))
+    gpu_params = serving_params(cfg, cpu_params, cuda)
+    tokens = torch.arange(2 * 12).reshape(2, 12) * 7 % cfg.vocab_size
+    out, counts = {}, {}
+    with torch.inference_mode():
+        for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+            kcommon.reset_launches()
+            state = init_decode_state(cfg, 2, 16, device=dev)
+            logits, state = prefill(cfg, params, {"tokens": tokens.to(dev)},
+                                    cache=state)
+            steps = [logits]
+            for i in range(3):
+                logits, state = decode_step(cfg, params, state,
+                                            tokens[:, i].to(dev), 12 + i)
+                steps.append(logits)
+            out[dev] = steps + [state[k] for k in sorted(state)]
+            counts[dev] = dict(kcommon.launches)
+    norms = 2 * cfg.num_layers + 2 + 1  # Mamba2 layers, shared block, final
+    assert counts["cpu"] == {name: 0 for name in kcommon.KERNELS}
+    assert counts["cuda"] == {"rmsnorm": norms * 4, "flash_attention": 1,
+                              "decode_attention": 3, "wkv6": 0}
+    for a, b in zip(out["cuda"], out["cpu"]):
+        _assert_close(a.cpu(), b)
+
+
+#: a gradient leaf's relative RMS error from the CPU's fp32 gradients, on
+#: the card, as a multiple of the CPU's own bf16 error: the kernels are held
+#: to be no less accurate than the plain path, not to round as the CPU does
+GRAD_ERR_OF_CPU_ERR = 2.0
+
+
+def _rel_rms(a, b):
+    return float((a.float() - b.float()).pow(2).mean().sqrt()
+                 / b.float().pow(2).mean().sqrt().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_hybrid_train_path_launches_the_kernels_and_matches_the_cpu(cuda,
+                                                                    remat):
+    """Loss and grads of the narrow hybrid on the card and on the CPU. With
+    remat a Mamba2 layer inside the group runs forward three times (the
+    forward, the group's recompute, its own recompute), the shared block and
+    the tail layer twice, the final norm once. The loss is held at 4e-2;
+    each gradient leaf's error from the CPU's fp32 gradients to
+    GRAD_ERR_OF_CPU_ERR times the CPU's own bf16 error."""
+    cfg = _ZAMBA2_NARROW.replace(remat=remat)
+    params = init_params(param_specs(cfg), seed=0, device="cpu")
+    batch = {"tokens": torch.arange(2 * 24).reshape(2, 24) * 7 % cfg.vocab_size}
+    out = {}
+    for dev, dtype in (("cpu", "float32"), ("cpu", "bfloat16"),
+                       ("cuda", "bfloat16")):
+        kcommon.reset_launches()
+        loss, _, grads = loss_and_grads(
+            cfg.replace(compute_dtype=dtype), tree_map(lambda t: t.to(dev), params),
+            {k: v.to(dev) for k, v in batch.items()})
+        assert all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+        out[dev, dtype] = (loss.cpu(), dict(kcommon.launches),
+                           [g.cpu() for g in tree_leaves(grads)])
+    grouped, shared, tail = (3, 2, 2) if remat else (1, 1, 1)
+    want = {name: 0 for name in kcommon.KERNELS}
+    want["rmsnorm"] = 2 * (grouped * 2 + shared + tail) + 1
+    want["flash_attention"] = shared
+    assert out["cpu", "bfloat16"][1] == {name: 0 for name in kcommon.KERNELS}
+    assert out["cuda", "bfloat16"][1] == want
+    _assert_close(out["cuda", "bfloat16"][0], out["cpu", "bfloat16"][0])
+    for g, c, truth in zip(out["cuda", "bfloat16"][2], out["cpu", "bfloat16"][2],
+                           out["cpu", "float32"][2]):
+        card, cpu = _rel_rms(g, truth), _rel_rms(c, truth)
+        assert card <= GRAD_ERR_OF_CPU_ERR * cpu, (card, cpu)
+
+
 # ---------------------------------------------------------------------------
 # Training: the autograd Functions' gradients and the train path's launches
 # ---------------------------------------------------------------------------
@@ -443,6 +542,7 @@ def test_rmsnorm_function_grads_equal_plain_autograd(cuda, shape):
 @pytest.mark.parametrize("B,S,H,G,dh", [
     (4, 1024, 32, 8, 128),   # granite-8b's train step, GQA rep 4
     (2, 1024, 16, 4, 64),
+    (4, 1024, 32, 32, 112),  # zamba2-7b's train step, rep 1
 ])
 def test_flash_attention_function_grads_equal_plain_autograd(cuda, B, S, H,
                                                              G, dh):

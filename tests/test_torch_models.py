@@ -197,7 +197,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
         convert.params_from_numpy({"w": np.zeros(2, np.float32)})
 
 
-@pytest.mark.parametrize("family", ["hybrid", "audio"])
+@pytest.mark.parametrize("family", ["audio"])
 def test_families_not_yet_ported_raise(family):
     cfg = granite_8b.SMOKE_CONFIG.replace(family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
