@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py            (from the repository root, one CUDA card)
     python3 chip_smoke.py --kernels rmsnorm,wkv6   (phases 1-3 for those only)
-    python3 chip_smoke.py --skip-serving           (phases 1-3, 6-13 and 14 (b, c))
+    python3 chip_smoke.py --skip-serving           (phases 1-3, 6-13 and 14-16 (b, c))
     python3 chip_smoke.py --only-moe               (phases 1-3 and 14)
     python3 chip_smoke.py --only-hybrid            (phases 1-3 and 15)
+    python3 chip_smoke.py --only-audio             (phases 1-3 and 16)
 
 Phases, each of which raises (exit code != 0) on failure:
 
@@ -19,8 +20,11 @@ Phases, each of which raises (exit code != 0) on failure:
    shapes, 16 heads over 16 KV heads, timed, and K1 at qwen3-vl-30b-a3b's
    training sequence, 32 heads over 4; K1 and K3 at zamba2-7b's head_dim
    112, 32 heads over 32, timed, each with a ragged case and a one-key
-   control; RMSNorm at zamba2-7b's 3584 and 7168) plus a ragged and a tiny
-   case each:
+   control; RMSNorm at zamba2-7b's 3584 and 7168; K1 and K3 at
+   musicgen-medium's head_dim 64, 24 heads over 24, over its 128-frame
+   prefix and 1000 frames, timed, each with a one-key control, and at
+   qwen1.5-32b's 40 heads over 40; RMSNorm at musicgen-medium's 1536 and
+   qwen1.5-32b's 5120, timed) plus a ragged and a tiny case each:
    max |err| and
    the worst element's share of its limit (one bf16 ulp of the value plus
    1-2% of its output vector's RMS; see KERNEL_RTOL), with a one-key fault that the
@@ -232,6 +236,26 @@ Phases, each of which raises (exit code != 0) on failure:
    K3 output onto the next head and must be refused at every step), then
    one train step's loss and gradients (phase 8's K1 control refused).
 
+16. The audio family (the audio branches of ``models/transformer.py`` and
+   ``models/model.py``). (a) musicgen-medium (48 layers, d_model 1536, 24
+   heads of 64 over 24 KV heads, 4 codebooks of 2048) served through
+   ``prefill`` + ``decode_step`` (``ServeEngine`` refuses the audio family,
+   on which the JAX engine fails; skipped under ``--skip-serving``): 8
+   prompts of 1000 frames of 4 codebooks after 128 seeded frame embeddings,
+   prefilled into a state of 1160 positions, then 31 greedy decode steps of
+   (8, 4) tokens at positions 1128 onward; 97 RMSNorm + 48 flash-attention
+   launches a prefill, 97 RMSNorm + 48 flash-decode a decode step; frames/s
+   and codebook tokens/s; the profile. (b) The same model at full depth
+   trains 3 AdamW steps as phase 6 on 4 x 1024 frames of 4 codebooks after
+   128 frame embeddings (the loss one mean over the (S-1)·4 codebook
+   positions of a row): 193 RMSNorm + 96 flash-attention launches a step.
+   (c) Its 2-layer cut, kernels vs plain: prefill logits (8, 4, 2048) and
+   three decode steps' (the control moves each head's K1 and K3 output onto
+   the next head and must be refused at every step), then one train step's
+   loss and gradients (phase 8's K1 control refused); and qwen1.5-32b's
+   2-layer full-width cut (40 heads of 128, a QKV bias) the same way as its
+   serving cut, with the heads control.
+
 The last lines are the ``nvidia-smi`` name/power-limit line as it prints
 it, one JSON object with every kernel's numbers, and ``{"ok": true,
 "device": {...}}``. A kernel's ``launches`` is its count on the serving path
@@ -239,8 +263,8 @@ it was ported for (granite-8b for RMSNorm and both attention kernels,
 rwkv6-3b for WKV6); ``launches_by_path`` gives each path's count, the
 training paths' over their 3 steps, the fused path's over its 53, the
 resume path's over its 11, the failure path's over its steps, the streams
-path's over its 22, phase 13's host path's (none), and phase 14's and
-phase 15's serving and training paths'.
+path's over its 22, phase 13's host path's (none), and phase 14's, 15's
+and 16's serving and training paths'.
 """
 from __future__ import annotations
 
@@ -372,6 +396,15 @@ VL_PREFIX = max(16, min(256, TRAIN_SEQ // 8))
 # Mamba2 layers and the shared block, then one tail layer, trains on phase
 # 6's batch (all 81 layers' fp32 state would take 108 GB)
 HYBRID_TRAIN_LAYERS = 7       # of 81: 0.981 B parameters, 15.7 GB of fp32 state
+# phase 16: the audio family. musicgen-medium serves BATCH prompts of PROMPT
+# frames of 4 codebooks after a conditioning prefix of AUDIO_PREFIX frame
+# embeddings, into a cache of AUDIO_PREFIX + MAX_SEQ positions, and trains
+# at full depth (1.837 B parameters, 29.4 GB of fp32 state) on phase 6's
+# batch after the same prefix (the reference's max(16, min(256, S // 8)) at
+# S 1024); qwen1.5-32b, the first config with a QKV bias, runs as a 2-layer
+# full-width cut
+AUDIO_PREFIX = 128
+AUDIO_TRAIN_LAYERS = 48       # all of them
 # the forward kernels' names as the profiler lists them
 KERNEL_SYMBOLS = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "fa_fwd_kernel",
                   "decode_attention": "decode_kernel", "wkv6": "wkv6_kernel"}
@@ -563,9 +596,10 @@ def phase_kernels(torch, F, flush, names):
 
 def kernel_rmsnorm(torch, F, flush, randn, entries):
     """K2 RMSNorm: granite-8b's D 4096, rwkv6-3b's D 2560, zamba2-7b's D
-    3584 and its Mamba2 blocks' D 7168 (``out_norm`` over d_inner), at the
-    serving and the training rows. Timed through the launcher
-    ``rmsnorm_fwd``."""
+    3584 and its Mamba2 blocks' D 7168 (``out_norm`` over d_inner),
+    musicgen-medium's D 1536 (its prefill rows count the conditioning
+    prefix) and qwen1.5-32b's D 5120, at the serving and the training rows.
+    Timed through the launcher ``rmsnorm_fwd``."""
     from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_fwd
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
@@ -580,13 +614,18 @@ def kernel_rmsnorm(torch, F, flush, randn, entries):
                              ("hybrid out_norm", BATCH * PROMPT, 7168),
                              ("hybrid decode", BATCH, 3584),
                              ("hybrid decode out_norm", BATCH, 7168),
-                             ("hybrid train out_norm", train_rows, 7168)):
+                             ("hybrid train out_norm", train_rows, 7168),
+                             ("audio prefill", BATCH * (AUDIO_PREFIX + PROMPT), 1536),
+                             ("audio decode", BATCH, 1536),
+                             ("audio train", TRAIN_GB * (TRAIN_SEQ + AUDIO_PREFIX), 1536),
+                             ("qwen prefill", BATCH * PROMPT, 5120),
+                             ("qwen decode", BATCH, 5120)):
         x, w = randn(rows, dim), randn(dim, dtype=torch.float32)
         err, share = check_kernel(torch, f"rmsnorm {label}", rmsnorm(x, w),
                                   rmsnorm_ref(x, w))
         line = f"rmsnorm {label} ({rows}, {dim}): max|err| {err:.3e} ({share:.2f} of limit)"
         if label in ("prefill", "decode", "rwkv prefill", "hybrid prefill",
-                     "hybrid out_norm"):
+                     "hybrid out_norm", "audio prefill", "qwen prefill"):
             ms = time_ms(torch, lambda: rmsnorm_fwd(x, w), flush, 50)
             plain = time_ms(torch, lambda: rmsnorm_ref(x, w), flush, 20)
             wb = w.to(x.dtype)
@@ -622,8 +661,10 @@ def kernel_rmsnorm(torch, F, flush, randn, entries):
 def kernel_flash_attention(torch, F, flush, randn, entries):
     """K1 flash attention at granite-8b's prefill and training shapes,
     deepseek-moe-16b's prefill (rep 1), qwen3-vl-30b-a3b's training
-    sequence after its prefix (rep 8) and zamba2-7b's prefill and training
-    shapes (head_dim 112, rep 1). Timed through the launcher
+    sequence after its prefix (rep 8), zamba2-7b's prefill and training
+    shapes (head_dim 112, rep 1), musicgen-medium's prefill and training
+    sequences after its conditioning prefix (head_dim 64, rep 1, 24 heads)
+    and qwen1.5-32b's prefill (40 heads, rep 1). Timed through the launcher
     ``flash_attention_fwd``."""
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          flash_attention_fwd)
@@ -637,6 +678,10 @@ def kernel_flash_attention(torch, F, flush, randn, entries):
             ("hybrid prefill", (BATCH, PROMPT, 32, 32, 112, True)),
             ("hybrid train", (TRAIN_GB, TRAIN_SEQ, 32, 32, 112, True)),
             ("hybrid ragged", (2, 45, 4, 4, 112, True)),
+            ("audio prefill", (BATCH, AUDIO_PREFIX + PROMPT, 24, 24, 64, True)),
+            ("audio train", (TRAIN_GB, TRAIN_SEQ + AUDIO_PREFIX, 24, 24, 64, True)),
+            ("audio ragged", (2, 45, 24, 24, 64, True)),
+            ("qwen prefill", (BATCH, PROMPT, 40, 40, 128, True)),
             ("ragged", (2, 45, 4, 2, 128, True)),
             ("full", (2, 100, 6, 3, 64, False)),
             ("tiny", (1, 5, 2, 1, 64, True))):
@@ -646,7 +691,7 @@ def kernel_flash_attention(torch, F, flush, randn, entries):
                                   flash_attention_ref(q, k, v, causal))
         line = (f"flash_attention {label} q{(B, S, H, dh)} kv{(B, S, G, dh)}: "
                 f"max|err| {err:.3e} ({share:.2f} of limit)")
-        if label in ("prefill", "moe prefill", "hybrid prefill"):
+        if label in ("prefill", "moe prefill", "hybrid prefill", "audio prefill"):
             ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal), flush, 20)
             plain = time_ms(torch, lambda: flash_attention_ref(q, k, v, causal), flush, 5)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -666,7 +711,7 @@ def kernel_flash_attention(torch, F, flush, randn, entries):
                     shape=f"q ({B}, {S}, {H}, {dh}) kv ({B}, {S}, {G}, {dh}) bf16 causal",
                     max_abs_err=err, max_err_share_of_limit=share, ms=ms,
                     plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
-            else:  # deepseek-moe-16b's and zamba2-7b's prefill, beside granite-8b's
+            else:  # deepseek-moe-16b's, zamba2-7b's, musicgen-medium's, beside granite-8b's
                 key = label.replace(" ", "_")
                 entries["flash_attention"].update({
                     f"{key}_shape": f"q ({B}, {S}, {H}, {dh}) kv ({B}, {S}, {G}, {dh})",
@@ -674,7 +719,8 @@ def kernel_flash_attention(torch, F, flush, randn, entries):
                     f"{key}_bound_ms": b_ms, f"{key}_bound_by": b_by,
                     f"{key}_max_abs_err": err, f"{key}_max_err_share_of_limit": share})
         log(line)
-        if label in ("prefill", "hybrid prefill"):  # one key's value lost: only the last row sees it
+        if label in ("prefill", "hybrid prefill", "audio prefill"):
+            # one key's value lost: only the last row sees it
             v_bad = v.clone()
             v_bad[:, -1] = 0
             check_rejects(torch, f"flash_attention {label}, last key's value zeroed",
@@ -683,8 +729,10 @@ def kernel_flash_attention(torch, F, flush, randn, entries):
 
 
 def kernel_decode_attention(torch, F, flush, randn, entries):
-    """K3 flash decode at granite-8b's, deepseek-moe-16b's (rep 1) and
-    zamba2-7b's (rep 1, head_dim 112) decode shapes."""
+    """K3 flash decode at granite-8b's, deepseek-moe-16b's (rep 1),
+    zamba2-7b's (rep 1, head_dim 112), musicgen-medium's (rep 1, head_dim
+    64, 24 heads, over its prefix, prompt and new frames) and qwen1.5-32b's
+    (40 heads, rep 1) decode shapes."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
@@ -697,6 +745,11 @@ def kernel_decode_attention(torch, F, flush, randn, entries):
             ("hybrid decode", (BATCH, 32, 32, 112, MAX_SEQ, cur_main)),
             ("hybrid tail", (BATCH, 32, 32, 112, MAX_SEQ, MAX_SEQ - 1)),
             ("hybrid ragged", (3, 6, 3, 112, 100, 70)),
+            ("audio decode", (BATCH, 24, 24, 64, AUDIO_PREFIX + MAX_SEQ,
+                              AUDIO_PREFIX + PROMPT - 1)),
+            ("audio tail", (BATCH, 24, 24, 64, AUDIO_PREFIX + MAX_SEQ,
+                            AUDIO_PREFIX + MAX_SEQ - 1)),
+            ("qwen decode", (BATCH, 40, 40, 128, MAX_SEQ, cur_main)),
             ("ragged", (3, 6, 3, 64, 100, 70)),
             ("tiny", (1, 8, 1, 64, 5, 0))):
         q, kc, vc = randn(B, H, dh), randn(B, T, G, dh), randn(B, T, G, dh)
@@ -705,7 +758,7 @@ def kernel_decode_attention(torch, F, flush, randn, entries):
                                   decode_attention_ref(q, kc, vc, cur))
         line = (f"decode_attention {label} q{(B, H, dh)} cache{(B, T, G, dh)} cur {cur}: "
                 f"max|err| {err:.3e} ({share:.2f} of limit)")
-        if label in ("decode", "moe decode", "hybrid decode"):
+        if label in ("decode", "moe decode", "hybrid decode", "audio decode"):
             ms = time_ms(torch, lambda: decode_attention(q, kc, vc, cur), flush, 50)
             plain = time_ms(torch, lambda: decode_attention_ref(q, kc, vc, cur), flush, 20)
             qs = q[:, :, None]
@@ -726,7 +779,7 @@ def kernel_decode_attention(torch, F, flush, randn, entries):
                     shape=f"q ({B}, {H}, {dh}) cache ({B}, {T}, {G}, {dh}) bf16 cur_index {cur}",
                     max_abs_err=err, max_err_share_of_limit=share, ms=ms,
                     plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
-            else:  # deepseek-moe-16b's and zamba2-7b's decode, beside granite-8b's
+            else:  # deepseek-moe-16b's, zamba2-7b's, musicgen-medium's, beside granite-8b's
                 key = label.replace(" ", "_")
                 entries["decode_attention"].update({
                     f"{key}_shape": f"q ({B}, {H}, {dh}) cache ({B}, {T}, {G}, {dh})",
@@ -734,7 +787,8 @@ def kernel_decode_attention(torch, F, flush, randn, entries):
                     f"{key}_bound_ms": b_ms, f"{key}_bound_by": b_by,
                     f"{key}_max_abs_err": err, f"{key}_max_err_share_of_limit": share})
         log(line)
-        if label in ("decode", "hybrid decode"):  # the newest key left out of the kernel's range
+        if label in ("decode", "hybrid decode", "audio decode"):
+            # the newest key left out of the kernel's range
             check_rejects(torch, f"decode_attention {label}, newest key dropped",
                           decode_attention(q, kc, vc, cur - 1),
                           decode_attention_ref(q, kc, vc, cur))
@@ -864,9 +918,7 @@ def phase_serve(torch, kcommon, cfg):
     for r in reqs:
         if len(r.generated) != NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in r.generated):
             raise AssertionError(f"request {r.rid}: bad output {r.generated}")
-    want = {"rmsnorm": (2 * cfg.num_layers + 1) * (1 + steps),
-            "flash_attention": cfg.num_layers,
-            "decode_attention": cfg.num_layers * steps, "wkv6": 0}
+    want = dense_launches(cfg, steps)
     if steps != NEW_TOKENS - 1 or launches != want:
         raise AssertionError(f"{cfg.name}: launch counts {launches} (decode steps {steps}), "
                              f"want {want}")
@@ -909,6 +961,15 @@ def phase_drops(torch, cfg, params):
         f"(mean {statistics.mean(shares):.4f})")
 
 
+def dense_launches(cfg, steps):
+    """Launches of one transformer prefill and ``steps`` decode steps: two
+    norms a layer and the final one each time, K1 once a layer in the
+    prefill, K3 once a layer a step."""
+    return {"rmsnorm": (2 * cfg.num_layers + 1) * (1 + steps),
+            "flash_attention": cfg.num_layers,
+            "decode_attention": cfg.num_layers * steps, "wkv6": 0}
+
+
 def rwkv_launches(cfg, steps):
     """Launches of one rwkv6 prefill and ``steps`` decode steps: three norms
     a layer and the final one each time, WKV6 once a layer in the prefill
@@ -928,12 +989,15 @@ def hybrid_launches(cfg, steps):
             "decode_attention": groups * steps, "wkv6": 0}
 
 
-def phase_serve_direct(torch, kcommon, cfg, expected):
+def phase_serve_direct(torch, kcommon, cfg, expected, prefix=0):
     """Full-width serving of ``cfg`` through the model-level API (``prefill``
     into a preallocated state, then greedy ``decode_step``, the host reading
     each token; ``ServeEngine`` refuses the RWKV and hybrid families as the
-    JAX engine does). ``expected(cfg, steps)`` gives the launches of a
-    prefill and ``steps`` decode steps. Returns (params, launches)."""
+    JAX engine does, and the audio family, on which the JAX engine fails).
+    With ``prefix``, each prompt follows that many seeded frame embeddings,
+    and the state holds them too. ``expected(cfg, steps)`` gives the
+    launches of a prefill and ``steps`` decode steps. Returns (params,
+    launches)."""
     import numpy as np
 
     from repro_torch.models import decode_step, init_decode_state, prefill
@@ -953,10 +1017,11 @@ def phase_serve_direct(torch, kcommon, cfg, expected):
         """Prefill, then greedy decode as ServeEngine.run_batch does it (the
         host reads each token). Returns (tokens, prefill s, decode s,
         launches counted by the end of prefill, last logits)."""
-        prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, PROMPT))).cuda()
+        batch = model_inputs(torch, cfg, token_grid(torch, cfg, rng, BATCH, PROMPT),
+                             prefix, SEED)
         t0 = time.monotonic()
-        state = init_decode_state(cfg, BATCH, MAX_SEQ, device="cuda")
-        logits, state = prefill(cfg, params, {"tokens": prompts}, cache=state)
+        state = init_decode_state(cfg, BATCH, prefix + MAX_SEQ, device="cuda")
+        logits, state = prefill(cfg, params, batch, cache=state)
         torch.cuda.synchronize()
         prefill_s = time.monotonic() - t0
         at_prefill = dict(kcommon.launches)
@@ -966,7 +1031,7 @@ def phase_serve_direct(torch, kcommon, cfg, expected):
             out.append(tok.cpu())
             if i + 1 == n_new:
                 break
-            logits, state = decode_step(cfg, params, state, tok, PROMPT + i)
+            logits, state = decode_step(cfg, params, state, tok, prefix + PROMPT + i)
             tok = torch.argmax(logits, dim=-1)
         torch.cuda.synchronize()
         return torch.stack(out, 1), prefill_s, time.monotonic() - t0, at_prefill, logits
@@ -983,14 +1048,23 @@ def phase_serve_direct(torch, kcommon, cfg, expected):
     if at_prefill != want_prefill or launches != want:
         raise AssertionError(f"{cfg.name} launch counts {at_prefill} after prefill, {launches} "
                              f"after {steps} decode steps; want {want_prefill}, {want}")
-    if tuple(tokens.shape) != (BATCH, NEW_TOKENS) or not bool(
+    audio = cfg.family == "audio"
+    want_shape = (BATCH, NEW_TOKENS) + ((cfg.num_codebooks,) if audio else ())
+    if tuple(tokens.shape) != want_shape or not bool(
             ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
         raise AssertionError(f"{cfg.name}: bad tokens {tokens}")
-    if not bool(torch.isfinite(logits.float()).all()):
-        raise AssertionError(f"{cfg.name}: non-finite logits")
-    log(f"{cfg.name} serve: batch {BATCH} x prompt {PROMPT}, {NEW_TOKENS} new tokens each: "
+    if tuple(logits.shape) != (BATCH,) + want_shape[2:] + (cfg.vocab_size,) \
+            or not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"{cfg.name}: logits of shape {tuple(logits.shape)} "
+                             f"or non-finite")
+    rate = (f"{BATCH * NEW_TOKENS / decode_s:.1f} frames/s, {tokens.numel() / decode_s:.1f} "
+            f"codebook tokens/s" if audio else f"{tokens.numel() / decode_s:.1f} tokens/s")
+    log(f"{cfg.name} serve: batch {BATCH} x prompt {PROMPT}"
+        + (f" {'frames' if audio else 'tokens'} after {prefix} frame embeddings "
+           f"(state of {prefix + MAX_SEQ} positions)" if prefix else "")
+        + f", {NEW_TOKENS} new each: "
         f"prefill {prefill_s * 1e3:.2f} ms; decode {steps} steps in {decode_s * 1e3:.2f} ms "
-        f"({decode_s / steps * 1e3:.3f} ms/step, {tokens.numel() / decode_s:.1f} tokens/s "
+        f"({decode_s / steps * 1e3:.3f} ms/step, {rate} "
         f"as tokens out / decode wall); max_memory_allocated {peak / 2**30:.2f} GiB")
     log(f"{cfg.name} serve launches: {at_prefill} after prefill, {launches} in all "
         f"(expected {want_prefill}, {want})")
@@ -998,25 +1072,26 @@ def phase_serve_direct(torch, kcommon, cfg, expected):
     return params, launches
 
 
-def phase_profile(torch, name, cfg, params):
-    """Where serving time goes: device-busy share of one prefill and of 8
-    decode steps (torch.profiler, CUDA activity only), and the kernels that
-    take the most device time."""
+def phase_profile(torch, name, cfg, params, prefix=0):
+    """Where serving time goes: device-busy share of one prefill (after
+    ``prefix`` frame embeddings) and of 8 decode steps (torch.profiler, CUDA
+    activity only), and the kernels that take the most device time."""
+    import numpy as np
+
     from repro_torch.models import decode_step, init_decode_state, prefill
 
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED)
-    tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device="cuda")
+    tokens = token_grid(torch, cfg, np.random.default_rng(SEED), BATCH, PROMPT)
+    batch = model_inputs(torch, cfg, tokens, prefix, SEED)
     with torch.inference_mode():
-        state = init_decode_state(cfg, BATCH, MAX_SEQ, device="cuda")
+        state = init_decode_state(cfg, BATCH, prefix + MAX_SEQ, device="cuda")
 
         def run_prefill():
-            prefill(cfg, params, {"tokens": tokens}, cache=state)
+            prefill(cfg, params, batch, cache=state)
 
         def run_decode():  # as ServeEngine.run_batch: the host reads each token
             tok = tokens[:, -1]
             for i in range(8):
-                logits, _ = decode_step(cfg, params, state, tok, PROMPT + i)
+                logits, _ = decode_step(cfg, params, state, tok, prefix + PROMPT + i)
                 tok = torch.argmax(logits, dim=-1)
                 tok.cpu()
 
@@ -1139,26 +1214,28 @@ def cut_params(cfg, params, n):
         params, **{stack: {k: v[:n] for k, v in params[stack].items()}})
 
 
-def phase_kernel_vs_plain(torch, name, cfg, params, layers=2, control=None):
+def phase_kernel_vs_plain(torch, name, cfg, params, layers=2, control=None, prefix=0):
     """A ``layers``-layer cut at full width: kernel path vs plain path on the
-    card (the MoE family under the kernel path's routing, ``RoutingReplay``).
-    ``control``, (name, context), runs the kernel path under a fault that
-    the check must refuse at every step."""
+    card (the MoE family under the kernel path's routing, ``RoutingReplay``),
+    the prompts after ``prefix`` frame embeddings. ``control``, (name,
+    context), runs the kernel path under a fault that the check must refuse
+    at every step."""
     import numpy as np
 
     from repro_torch.models import decode_step, init_decode_state, prefill
 
     cfg, params = cut_params(cfg, params, layers)
     rng = np.random.default_rng(SEED + 1)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, PROMPT))).cuda()
+    batch = model_inputs(torch, cfg, token_grid(torch, cfg, rng, BATCH, PROMPT), prefix,
+                         SEED + 1)
     cut = f"{name} {layers}-layer cut"
 
     def run():
-        state = init_decode_state(cfg, BATCH, MAX_SEQ, device="cuda")
-        logits, state = prefill(cfg, params, {"tokens": tokens}, cache=state)
+        state = init_decode_state(cfg, BATCH, prefix + MAX_SEQ, device="cuda")
+        logits, state = prefill(cfg, params, batch, cache=state)
         outs = [logits]
         for i, tok in enumerate(feed):
-            logits, state = decode_step(cfg, params, state, tok, PROMPT + i)
+            logits, state = decode_step(cfg, params, state, tok, prefix + PROMPT + i)
             outs.append(logits)
         return outs
 
@@ -1276,20 +1353,34 @@ def timed_rules(torch):
         yield events
 
 
-def train_batch(torch, cfg, prefix=0, seed=SEED):
-    """Seeded TRAIN_GB x TRAIN_SEQ tokens and, with ``prefix``, seeded fp32
-    frame embeddings (TRAIN_GB, prefix, d_model) before them."""
-    import numpy as np
+def token_grid(torch, cfg, rng, rows, n):
+    """Tokens (rows, n) from the numpy generator ``rng``, or (rows, n, K)
+    over the audio family's K codebooks, on the card."""
+    shape = (rows, n, cfg.num_codebooks) if cfg.family == "audio" else (rows, n)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).cuda()
 
-    rng = np.random.default_rng(seed)
-    batch = {"tokens": torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (TRAIN_GB, TRAIN_SEQ))).cuda()}
+
+def model_inputs(torch, cfg, tokens, prefix, seed):
+    """The model's batch: ``tokens`` and, with ``prefix``, seeded fp32 frame
+    embeddings (rows, prefix, d_model) before them."""
+    batch = {"tokens": tokens}
     if prefix:
         gen = torch.Generator(device="cuda")
         gen.manual_seed(seed + 3)
-        batch["frontend_embeds"] = torch.randn((TRAIN_GB, prefix, cfg.d_model),
+        batch["frontend_embeds"] = torch.randn((tokens.shape[0], prefix, cfg.d_model),
                                                generator=gen, device="cuda")
     return batch
+
+
+def train_batch(torch, cfg, prefix=0, seed=SEED):
+    """Seeded TRAIN_GB x TRAIN_SEQ tokens (of K codebooks for audio) and,
+    with ``prefix``, seeded fp32 frame embeddings (TRAIN_GB, prefix,
+    d_model) before them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return model_inputs(torch, cfg, token_grid(torch, cfg, rng, TRAIN_GB, TRAIN_SEQ),
+                        prefix, seed)
 
 
 def phase_train(torch, kcommon, label, cfg, prefix=0):
@@ -1316,8 +1407,10 @@ def phase_train(torch, kcommon, label, cfg, prefix=0):
     batch = train_batch(torch, cfg, prefix)
     if prefix:
         log(f"{label} train: {TRAIN_GB} x {TRAIN_SEQ} tokens after a prefix of {prefix} "
-            f"frame embeddings a row (fp32, seeded): {TRAIN_SEQ + prefix} positions; "
-            f"MoE capacity {moe_capacity(cfg, TRAIN_GB * (TRAIN_SEQ + prefix))} a expert")
+            f"frame embeddings a row (fp32, seeded): {TRAIN_SEQ + prefix} positions"
+            + (f"; MoE capacity {moe_capacity(cfg, TRAIN_GB * (TRAIN_SEQ + prefix))} "
+               f"a expert" if cfg.family == "moe" else ""))
+    codebooks = cfg.num_codebooks if cfg.family == "audio" else 1
     step = make_train_step(cfg, OptimizerConfig(**TRAIN_OPT), StepConfig(microbatches=1))
     samples = [p.view(-1)[:4096].clone() for p in tree_leaves(params)]
     want = expected_train_launches(cfg)
@@ -1337,9 +1430,11 @@ def phase_train(torch, kcommon, label, cfg, prefix=0):
         before = now
         m = {k: float(v) for k, v in metrics.items()}
         readings.append((m, per_step, wall * 1e3))
+        rate = (f"{tokens / wall:.1f} frames/s, {codebooks * tokens / wall:.1f} codebook "
+                f"tokens/s" if codebooks > 1 else f"{tokens / wall:.1f} tokens/s")
         log(f"{label} train step {i + 1}: loss {m['loss']:.6f}  aux_loss {m['aux_loss']:.6f}"
             f"  grad_norm {m['grad_norm']:.6f}  lr {m['lr']:.3e}  {wall * 1e3:.2f} ms  "
-            f"{tokens / wall:.1f} tokens/s  launches {per_step}")
+            f"{rate}  launches {per_step}")
     launches = dict(kcommon.launches)
     peak = torch.cuda.max_memory_allocated()
     moved = sum(bool((p.view(-1)[:4096] != s).any())
@@ -2802,15 +2897,17 @@ def control_k4_time_reversed():
 
 
 @contextlib.contextmanager
-def control_heads_rolled():
-    """The hybrid's shared block with each head's K1 and K3 output moved onto
-    the next head (the kernels run as they are; their outputs are
-    permuted)."""
-    from repro_torch.models import mamba2
+def control_heads_rolled(module="mamba2"):
+    """The attention of ``repro_torch.models.<module>`` (the hybrid's shared
+    block, or the transformer's layers) with each head's K1 and K3 output
+    moved onto the next head (the kernels run as they are; their outputs
+    are permuted)."""
+    import importlib
 
-    with swapped(mamba2, "attention",
+    mod = importlib.import_module(f"repro_torch.models.{module}")
+    with swapped(mod, "attention",
                  lambda fn: lambda *a, **kw: fn(*a, **kw).roll(1, dims=2)), \
-            swapped(mamba2, "decode_attention",
+            swapped(mod, "decode_attention",
                     lambda fn: lambda *a: fn(*a).roll(1, dims=1)):
         yield
 
@@ -2843,6 +2940,48 @@ def phase_hybrid(torch, kcommon, paths, skip_serving, free, done):
     done(15)
 
 
+def phase_audio(torch, kcommon, paths, skip_serving, free, done):
+    """Phase 16: musicgen-medium served at full width and depth (a, unless
+    ``skip_serving``), trained at full depth (b) and its 2-layer cut held
+    kernels vs plain (c); qwen1.5-32b's 2-layer cut held kernels vs plain.
+    Adds the paths' launches to ``paths``."""
+    import functools
+
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("musicgen_medium")
+    rolled = ("each head's K1 and K3 output moved onto the next head",
+              functools.partial(control_heads_rolled, "transformer"))
+    if not skip_serving:  # (a) full width and depth, and its profile
+        params, paths["musicgen-medium"] = phase_serve_direct(
+            torch, kcommon, cfg, dense_launches, prefix=AUDIO_PREFIX)
+        phase_profile(torch, "musicgen-medium", cfg, params, prefix=AUDIO_PREFIX)
+        del params
+        free()
+    # (b) training at full depth, after the conditioning prefix
+    paths["musicgen-medium train"], _ = phase_train(
+        torch, kcommon, "musicgen-medium", cfg.replace(num_layers=AUDIO_TRAIN_LAYERS),
+        prefix=AUDIO_PREFIX)
+    free()
+    # (c) the 2-layer cut, kernels vs plain: serving, then one train step
+    cut = cfg.replace(num_layers=2)
+    phase_kernel_vs_plain(torch, "musicgen-medium", cut, serving_weights(torch, cut),
+                          control=rolled, prefix=AUDIO_PREFIX)
+    free()
+    phase_train_vs_plain(torch, "musicgen-medium", cfg, "K1 backward without the causal mask",
+                         control_k1_without_mask, prefix=AUDIO_PREFIX)
+    free()
+    # qwen1.5-32b's 2-layer cut (its QKV bias on the path), kernels vs plain
+    qwen = get_config("qwen15_32b").replace(num_layers=2)
+    log(f"{qwen.name} 2-layer cut: d_model {qwen.d_model}, {qwen.num_heads} heads of "
+        f"{qwen.head_dim} over {qwen.num_kv_heads}, QKV bias {qwen.qkv_bias}, "
+        f"{qwen.param_count() / 1e9:.3f} B params")
+    phase_kernel_vs_plain(torch, "qwen1.5-32b", qwen, serving_weights(torch, qwen),
+                          control=rolled)
+    free()
+    done(16)
+
+
 def main() -> int:
     import argparse
 
@@ -2851,11 +2990,13 @@ def main() -> int:
                     help="comma-separated kernel names: build and check only "
                          "these (phases 1-3) and skip the serving phases")
     ap.add_argument("--skip-serving", action="store_true",
-                    help="run phases 1-3, 6-13, 14 (b, c) and 15 (b, c) only")
+                    help="run phases 1-3, 6-13, 14 (b, c), 15 (b, c) and 16 (b, c) only")
     ap.add_argument("--only-moe", action="store_true",
                     help="run phases 1-3 and 14 only")
     ap.add_argument("--only-hybrid", action="store_true",
                     help="run phases 1-3 and 15 only")
+    ap.add_argument("--only-audio", action="store_true",
+                    help="run phases 1-3 and 16 only")
     args = ap.parse_args()
     import torch
 
@@ -2920,7 +3061,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     paths = {}  # path -> its launches
-    only = args.only_moe or args.only_hybrid
+    only = args.only_moe or args.only_hybrid or args.only_audio
     if not (args.skip_serving or only):
         # -- 4. granite-8b at full width, its profile and its 2-layer cut -----------------
         engine, paths["granite-8b"] = phase_serve(torch, kcommon, get_config("granite_8b"))
@@ -2942,17 +3083,21 @@ def main() -> int:
     if not only:
         phases_6_to_13(torch, kcommon, paths, smi, free, done)
     # -- 14. the MoE family and the vision prefix -------------------------------------------
-    if not args.only_hybrid:
+    if not (args.only_hybrid or args.only_audio):
         phase_moe(torch, kcommon, paths, args.skip_serving, free, done)
 
     # -- 15. the Mamba2 / Zamba2 hybrid ------------------------------------------------------
-    if not args.only_moe:
+    if not (args.only_moe or args.only_audio):
         phase_hybrid(torch, kcommon, paths, args.skip_serving, free, done)
+
+    # -- 16. the audio family, and qwen1.5-32b's QKV bias -----------------------------------
+    if not (args.only_moe or args.only_hybrid):
+        phase_audio(torch, kcommon, paths, args.skip_serving, free, done)
 
     # launches: each kernel's count on the serving path it was ported for
     # (granite-8b for K1-K3, rwkv6-3b for K4; their training paths with
-    # --skip-serving, the MoE or hybrid paths with --only-moe or
-    # --only-hybrid), and each path's count beside it
+    # --skip-serving, the MoE, hybrid or audio paths with --only-moe,
+    # --only-hybrid or --only-audio), and each path's count beside it
     for kname, e in entries.items():
         path = "rwkv6-3b" if kname == "wkv6" else "granite-8b"
         e["launches_path"] = next(p for p in (path, f"{path} train", *paths) if p in paths)

@@ -1,5 +1,6 @@
-"""Family dispatch (port of ``repro.models.model``): one API over the ported
-architecture families — ``dense``, ``moe``, ``vlm``, ``rwkv`` and ``hybrid``.
+"""Family dispatch (port of ``repro.models.model``): one API over every
+architecture family — ``dense``, ``moe``, ``vlm``, ``audio``, ``rwkv`` and
+``hybrid``.
 
   param_specs(cfg)                         -> ParamSpec tree
   forward(cfg, params, batch)              -> (logits, aux)
@@ -8,10 +9,11 @@ architecture families — ``dense``, ``moe``, ``vlm``, ``rwkv`` and ``hybrid``.
                                               recurrent state)
   prefill / decode_step                    -> serving
 
-``batch`` is a dict holding tokens (B, S) int and, for the transformer
-families, optional ``frontend_embeds`` (B, P, d_model): precomputed modality
-embeddings put before the token embeddings. Labels are next-token shifted
-in the loss; the prefix positions are left out of it.
+``batch`` is a dict holding tokens (B, S) int ((B, S, K) for audio's K
+codebooks) and, for the transformer families, optional ``frontend_embeds``
+(B, P, d_model): precomputed modality embeddings put before the token
+embeddings (audio's conditioning prefix). Labels are next-token shifted in
+the loss; the prefix positions are left out of it.
 """
 from __future__ import annotations
 
@@ -23,26 +25,17 @@ from repro_torch.models import mamba2, rwkv6, transformer
 from repro_torch.models.common import resolve_device, softmax_cross_entropy
 from repro_torch.models.config import ModelConfig
 
-#: where each family that is not ported yet stands in ROADMAP.md, Queue 1
-_NOT_PORTED = {
-    "audio": "item 6: frontends (audio codebooks)",
-}
-_PORTED = {"dense": transformer, "moe": transformer, "vlm": transformer,
-           "rwkv": rwkv6, "hybrid": mamba2}
+_FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+             "audio": transformer, "rwkv": rwkv6, "hybrid": mamba2}
 
 
 def _inputs(cfg: ModelConfig, batch: Dict):
     """(tokens, kwargs of the family's forward / prefill): the transformer
-    families take the ``frontend_embeds`` prefix; the audio frontend's is
-    refused until its codebooks are ported, and RWKV and the hybrid have no
-    prefix."""
+    families take the ``frontend_embeds`` prefix; RWKV and the hybrid have
+    none."""
     fe = batch.get("frontend_embeds")
     if fe is None:
         return batch["tokens"], {}
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            "frontend_embeds of the audio family are not ported yet "
-            f"(ROADMAP.md, Queue 1 {_NOT_PORTED['audio']})")
     if _family(cfg) is not transformer:
         raise ValueError(f"family {cfg.family!r} takes no frontend_embeds")
     return batch["tokens"], {"frontend_embeds": fe}
@@ -50,13 +43,9 @@ def _inputs(cfg: ModelConfig, batch: Dict):
 
 def _family(cfg: ModelConfig):
     """The model module of ``cfg.family``."""
-    if cfg.family in _PORTED:
-        return _PORTED[cfg.family]
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet "
-            f"(ROADMAP.md, Queue 1 {_NOT_PORTED[cfg.family]})")
-    raise ValueError(f"unknown family {cfg.family!r}")
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return _FAMILIES[cfg.family]
 
 
 def param_specs(cfg: ModelConfig):
@@ -73,11 +62,18 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token CE of the token positions' logits, ``logits[:, P:][:,
     :-1]`` (P the frontend prefix's length, else 0), against ``tokens[:,
-    1:]``, plus the aux loss. Returns (total, {"ce_loss", "aux_loss"})."""
+    1:]``, plus the aux loss. Audio's (B, S-1, K, V) logits and (B, S-1, K)
+    labels are one mean over all (S-1)·K of a row, as the reference
+    reshapes them. Returns (total, {"ce_loss", "aux_loss"})."""
     logits, aux = forward(cfg, params, batch)
     fe = batch.get("frontend_embeds")
     P = fe.shape[1] if fe is not None else 0
-    loss = softmax_cross_entropy(logits[:, P:][:, :-1], batch["tokens"][:, 1:])
+    tok_logits, labels = logits[:, P:][:, :-1], batch["tokens"][:, 1:]
+    if cfg.family == "audio":
+        B, Sm1, K, V = tok_logits.shape
+        tok_logits = tok_logits.reshape(B, Sm1 * K, V)
+        labels = labels.reshape(B, Sm1 * K)
+    loss = softmax_cross_entropy(tok_logits, labels)
     return loss + aux, {"ce_loss": loss, "aux_loss": aux}
 
 

@@ -1,8 +1,10 @@
 """Decoder-only transformer (GQA + SwiGLU), port of ``repro.models.transformer``
-for the dense, moe and vlm families (moe swaps the FFN for
-``repro_torch.models.moe``; vlm is the dense backbone). A modality frontend
-enters as precomputed embeddings, ``frontend_embeds`` (B, P, D), put before
-the token embeddings.
+for the dense, moe, vlm and audio families (moe swaps the FFN for
+``repro_torch.models.moe``; vlm and audio are the dense backbone). A
+modality frontend enters as precomputed embeddings, ``frontend_embeds``
+(B, P, D), put before the token embeddings. Audio reads tokens (B, S, K)
+over K codebooks: its input is the sum of the K tables' embeddings and its
+output K heads, logits (B, S, K, V).
 
 Weights keep the JAX layouts and leaf paths — ``wq`` (L, D, H, dh), ``wo``
 (L, H, dh, D), ... — with the leading "layers" axis; the layer scan becomes a
@@ -67,14 +69,21 @@ def layer_param_specs(cfg: ModelConfig, L: Optional[int] = None
 
 def param_specs(cfg: ModelConfig) -> Dict:
     D, V = cfg.d_model, cfg.vocab_size
+    if cfg.family == "audio":
+        embed = ParamSpec((cfg.num_codebooks, V, D), (None, "vocab", "embed"),
+                          init="embed", init_scale=0.02)
+        unembed = ParamSpec((cfg.num_codebooks, D, V), (None, "embed", "vocab"))
+    else:
+        embed = ParamSpec((V, D), ("vocab", "embed"), init="embed",
+                          init_scale=0.02)
+        unembed = ParamSpec((D, V), ("embed", "vocab"))
     specs = {
-        "embed": ParamSpec((V, D), ("vocab", "embed"), init="embed",
-                           init_scale=0.02),
+        "embed": embed,
         "layers": layer_param_specs(cfg),
         "final_norm": ParamSpec((D,), ("embed",), init="ones"),
     }
     if not cfg.tie_embeddings:
-        specs["unembed"] = ParamSpec((D, V), ("embed", "vocab"))
+        specs["unembed"] = unembed
     return specs
 
 
@@ -84,10 +93,21 @@ def param_specs(cfg: ModelConfig) -> Dict:
 
 def _embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor
                   ) -> torch.Tensor:
+    if cfg.family == "audio":
+        # tokens (B, S, K): the K codebook rows summed in the tables' dtype,
+        # then cast
+        return sum(table[tokens[..., k]] for k, table in enumerate(
+            params["embed"].unbind(0))).to(cfg.cdtype)
     return params["embed"][tokens].to(cfg.cdtype)
 
 
 def _unembed(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
+    if cfg.family == "audio":
+        # K heads, no softcap: (B, S, K, V), the reference's "bsd,kdv->bskv";
+        # one product a head over the unbound (D, V) tables, so the table's
+        # gradient is stacked contiguous (the optimizer updates in place)
+        return torch.stack([h @ w.to(cfg.cdtype)
+                            for w in params["unembed"].unbind(0)], dim=2)
     table = params["embed"].t() if cfg.tie_embeddings else params["unembed"]
     logits = h @ table.to(cfg.cdtype)
     if cfg.logits_softcap:
@@ -179,9 +199,9 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
             frontend_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training/eval forward pass. Returns (logits, aux_loss), the aux loss
-    summed over the layers. tokens: (B, S) int; frontend_embeds: (B, P, D)
-    precomputed modality embeddings, prepended (logits cover P + S
-    positions)."""
+    summed over the layers. tokens: (B, S) int, or (B, S, K) for audio;
+    frontend_embeds: (B, P, D) precomputed modality embeddings, prepended
+    (logits cover P + S positions)."""
     h, cos, sin = _embed_and_rope(cfg, params, tokens, frontend_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     layer = remat(cfg, decoder_layer)
@@ -200,7 +220,8 @@ def state_specs(cfg: ModelConfig, batch: int, max_seq: int):
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache=None,
             frontend_embeds: Optional[torch.Tensor] = None):
-    """Forward pass that also fills the KV cache. Returns (logits_last, cache).
+    """Forward pass that also fills the KV cache. Returns (logits_last, cache),
+    logits (B, V), or (B, K, V) for audio.
 
     S counts the frontend prefix's P positions and the tokens. Without
     ``cache`` a (L, B, S, G, dh) cache is allocated; with one (of any length
@@ -228,11 +249,11 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
                 pos: int):
     """One-token decode against the KV cache, updated in place.
 
-    tokens: (B,) int; pos: host int — the current position. Returns
-    (logits, cache).
+    tokens: (B,) int, or (B, K) for audio; pos: host int — the current
+    position. Returns (logits, cache).
     """
     pos = int(pos)
-    h = _embed_tokens(cfg, params, tokens[:, None])  # (B, 1, D)
+    h = _embed_tokens(cfg, params, tokens[:, None])  # (B, 1[, K]) -> (B, 1, D)
     cos, sin = rope_angles(torch.full((1,), pos, device=h.device),
                            cfg.head_dim, cfg.rope_theta)
     cos, sin = cos[None], sin[None]  # (1, 1, dh/2)

@@ -6,7 +6,7 @@ sampling, per-slot request lifecycle. On the CUDA card (the default device)
 prefill attention, decode attention and every RMSNorm run on the port's
 Hopper kernels.
 
-Differences from the JAX engine, each for the card's sake:
+Differences from the JAX engine, the first three for the card's sake:
 
 * the weights JAX casts to ``compute_dtype`` on every use (embed, unembed,
   the attention and FFN matrices) are cast once, at load — the same bits,
@@ -15,7 +15,10 @@ Differences from the JAX engine, each for the card's sake:
   written in place by prefill and decode, instead of padded after prefill;
 * temperature sampling draws with ``torch.multinomial`` from a seeded
   ``torch.Generator``, which cannot reproduce ``jax.random``: only greedy
-  decoding matches the JAX engine token for token.
+  decoding matches the JAX engine token for token;
+* the audio family is refused where the JAX engine accepts it and then
+  fails on its first decoded token (ROADMAP.md, Queue 3); audio is served
+  through ``prefill`` and ``decode_step``.
 """
 from __future__ import annotations
 
@@ -36,11 +39,14 @@ _DENSE_CAST = ("embed", "unembed", "wq", "wk", "wv", "wo", "bq", "bk", "bv",
 #: per family, the leaves the JAX model casts to compute_dtype on use (RWKV6
 #: keeps w0 and u fp32, as JAX casts them to float32, the MoE router stays
 #: fp32, as JAX routes in float32, the hybrid's A_log, dt_bias and D_skip
-#: stay fp32, as JAX reads them in float32, and so does every norm scale)
+#: stay fp32, as JAX reads them in float32, audio's codebook tables stay
+#: fp32, as JAX sums the K rows in float32 and casts the sum, and so does
+#: every norm scale)
 _CAST_ON_LOAD = {
     "dense": _DENSE_CAST,
     "moe": _DENSE_CAST + ("sh_gate", "sh_up", "sh_down"),
     "vlm": _DENSE_CAST,
+    "audio": tuple(k for k in _DENSE_CAST if k != "embed"),
     "hybrid": _DENSE_CAST + ("in_proj", "conv_w", "conv_b", "out_proj"),
     "rwkv": ("embed", "unembed", "w_r", "w_k", "w_v", "w_g", "w_o", "mix_w1",
              "mix_w2", "mu_base", "mu_rkvgw", "decay_w1", "decay_w2", "cm_k",
@@ -102,9 +108,13 @@ class ServeEngine:
         if cfg.family not in ("dense", "moe", "vlm", "audio"):
             raise ValueError("ServeEngine currently targets KV-cache families; "
                              "use decode_step directly for SSM/hybrid")
-        if cfg.family not in _CAST_ON_LOAD:
-            raise NotImplementedError(f"serving family {cfg.family!r} is not "
-                                      f"ported yet (see ROADMAP.md)")
+        if cfg.family == "audio":
+            raise NotImplementedError(
+                "ServeEngine does not serve the audio family: the reference "
+                "engine's run_batch reads each request's next token as one "
+                "int (repro/serve/engine.py, `t = int(tok_np[b])`) and "
+                "fails on audio's K codebooks a step (ROADMAP.md, Queue 3); "
+                "serve audio through models.prefill and models.decode_step")
         self.device = resolve_device(device)
         self.cfg = cfg
         with torch.inference_mode():

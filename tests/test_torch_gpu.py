@@ -146,6 +146,12 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape):
     (2, 45, 45, 4, 4, 112, True),
     (1, 200, 333, 8, 2, 112, False),
     (1, 1, 1, 2, 2, 112, True),
+    # head_dim 64 at rep 1, 24 heads: musicgen-medium's serving prefill (a
+    # 128-frame prefix and 1000 frames, S not a multiple of the 128-row
+    # tile), its training sequence, and a ragged one
+    (8, 1128, 1128, 24, 24, 64, True),
+    (4, 1152, 1152, 24, 24, 64, True),
+    (2, 45, 45, 24, 24, 64, True),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, S, T, H, G, dh, causal):
     gen = torch.Generator(device=cuda).manual_seed(1)
@@ -180,6 +186,13 @@ def test_flash_attention_kernel_matches_plain(cuda, B, S, T, H, G, dh, causal):
     (3, 6, 3, 112, 100, 70),
     (2, 8, 1, 112, 300, 8 * TILE - 1),
     (1, 4, 4, 112, 5, 0),
+    # head_dim 64 at rep 1, 24 heads: musicgen-medium's decode over its
+    # 1160-position cache (prefix, prompt and 32 new frames), its first
+    # step and its cache's last position, and a ragged tail
+    (8, 24, 24, 64, 1160, 1127),
+    (8, 24, 24, 64, 1160, 1128),
+    (8, 24, 24, 64, 1160, 1159),
+    (3, 24, 24, 64, 100, 70),
 ])
 def test_decode_attention_kernel_matches_plain(cuda, B, H, G, dh, T, cur):
     gen = torch.Generator(device=cuda).manual_seed(2)
@@ -452,6 +465,57 @@ def test_hybrid_on_the_card_launches_the_kernels_and_matches_the_cpu(cuda):
         _assert_close(a.cpu(), b)
 
 
+#: musicgen-medium's layout at a narrow width: 4 codebooks, 4 heads of 64
+#: over 4 KV heads (rep 1), a conditioning prefix
+_MUSICGEN_NARROW = ModelConfig(
+    name="musicgen-narrow", family="audio", num_layers=2, d_model=256,
+    num_heads=4, num_kv_heads=4, d_ff=512, vocab_size=512, num_codebooks=4,
+    frontend="audio")
+
+
+def _audio_batch(cfg, n=12, prefix=8):
+    gen = torch.Generator().manual_seed(0)
+    return {"tokens": torch.randint(0, cfg.vocab_size,
+                                    (2, n, cfg.num_codebooks), generator=gen),
+            "frontend_embeds": 0.5 * torch.randn((2, prefix, cfg.d_model),
+                                                 generator=gen)}
+
+
+def test_audio_model_on_the_card_launches_the_kernels_and_matches_the_cpu(cuda):
+    """The narrow audio model: prefill of 12 frames of 4 codebooks after an
+    8-frame prefix through K1 and K2, then three decode steps of (B, 4)
+    tokens through K3 and K2, each step's (B, 4, V) logits against the CPU
+    port at 4e-2."""
+    cfg = _MUSICGEN_NARROW
+    assert cfg.head_dim == 64
+    cpu_params = serving_params(cfg, init_params(param_specs(cfg), seed=0,
+                                                 device="cpu"), torch.device("cpu"))
+    gpu_params = serving_params(cfg, cpu_params, cuda)
+    batch = _audio_batch(cfg)
+    n0 = 8 + 12
+    out, counts = {}, {}
+    with torch.inference_mode():
+        for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+            kcommon.reset_launches()
+            cache = init_decode_state(cfg, 2, n0 + 4, device=dev)
+            logits, cache = prefill(cfg, params,
+                                    {k: v.to(dev) for k, v in batch.items()},
+                                    cache=cache)
+            steps = [logits]
+            for i in range(3):
+                logits, cache = decode_step(
+                    cfg, params, cache, batch["tokens"][:, i].to(dev), n0 + i)
+                steps.append(logits)
+            out[dev], counts[dev] = steps, dict(kcommon.launches)
+    L = cfg.num_layers
+    assert counts["cpu"] == {name: 0 for name in kcommon.KERNELS}
+    assert counts["cuda"] == {"rmsnorm": (2 * L + 1) * 4, "flash_attention": L,
+                              "decode_attention": 3 * L, "wkv6": 0}
+    assert out["cuda"][0].shape == (2, cfg.num_codebooks, cfg.vocab_size)
+    for a, b in zip(out["cuda"], out["cpu"]):
+        _assert_close(a.cpu(), b)
+
+
 #: a gradient leaf's relative RMS error from the CPU's fp32 gradients, on
 #: the card, as a multiple of the CPU's own bf16 error: the kernels are held
 #: to be no less accurate than the plain path, not to round as the CPU does
@@ -582,7 +646,7 @@ def test_training_refuses_what_the_kernels_refuse(cuda):
         wkv6(r, r, r, r, torch.zeros(2, 8, device=cuda), 64)
 
 
-@pytest.mark.parametrize("family", ["dense", "rwkv", "moe"])
+@pytest.mark.parametrize("family", ["dense", "rwkv", "moe", "audio"])
 @pytest.mark.parametrize("remat", [True, False])
 def test_train_path_launches_the_kernels_and_matches_the_cpu(cuda, family,
                                                              remat):
@@ -590,7 +654,8 @@ def test_train_path_launches_the_kernels_and_matches_the_cpu(cuda, family,
     launches once per use, twice with remat (forward and recompute); the
     loss against the CPU at the bf16 atol = rtol = 4e-2. The MoE model is
     qwen3-vl-30b-a3b's layout at a narrow width (rep 8, no shared experts),
-    trained on a frame-embedding prefix."""
+    trained on a frame-embedding prefix; the audio model is
+    musicgen-medium's, on 4 codebooks after a conditioning prefix."""
     batch = {}
     if family == "dense":
         cfg = ModelConfig(name="gpu-smoke", family="dense", num_layers=2,
@@ -602,12 +667,17 @@ def test_train_path_launches_the_kernels_and_matches_the_cpu(cuda, family,
         per_layer = {"rmsnorm": 2, "flash_attention": 1}
         batch["frontend_embeds"] = 0.5 * torch.randn(
             (2, 8, cfg.d_model), generator=torch.Generator().manual_seed(0))
+    elif family == "audio":
+        cfg = _MUSICGEN_NARROW
+        per_layer = {"rmsnorm": 2, "flash_attention": 1}
+        batch = _audio_batch(cfg, n=24)
     else:
         cfg = RWKV_SMOKE
         per_layer = {"rmsnorm": 3, "wkv6": 1}
     cfg = cfg.replace(remat=remat)
     params = init_params(param_specs(cfg), seed=0, device="cpu")
-    batch["tokens"] = torch.arange(2 * 24).reshape(2, 24) * 7 % cfg.vocab_size
+    if family != "audio":
+        batch["tokens"] = torch.arange(2 * 24).reshape(2, 24) * 7 % cfg.vocab_size
     out = {}
     for dev in ("cpu", "cuda"):
         kcommon.reset_launches()

@@ -1,5 +1,6 @@
 """The port's config, parameters and dense transformer against the JAX
-package, on the granite-8b smoke config, on the CPU.
+package, on the granite-8b smoke config, on the CPU; the registry against
+the JAX registry, config by config; and qwen1.5-32b's QKV-bias path.
 
 The same JAX-initialised weights go to both packages through numpy
 (``repro_torch.convert``). Tolerances: fp32 < 1e-4 (as
@@ -23,17 +24,22 @@ import numpy as np  # noqa: E402
 from numpy.testing import assert_allclose  # noqa: E402
 
 from repro.configs import granite_8b as jax_granite  # noqa: E402
+from repro.configs import qwen15_32b as jax_qwen  # noqa: E402
+from repro.configs import registry as jax_registry  # noqa: E402
 from repro.models import decode_step as jax_decode_step  # noqa: E402
 from repro.models import forward as jax_forward  # noqa: E402
 from repro.models import init_decode_state as jax_init_decode_state  # noqa: E402
 from repro.models import init_params as jax_init_params  # noqa: E402
+from repro.models import loss_fn as jax_loss_fn  # noqa: E402
 from repro.models import param_specs as jax_param_specs  # noqa: E402
 from repro.models import prefill as jax_prefill  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs import granite_8b  # noqa: E402
+from repro_torch.configs import granite_8b, qwen15_32b, registry  # noqa: E402
 from repro_torch.models import (decode_step, forward, init_decode_state,  # noqa: E402
                                 init_params, param_specs, prefill)
+from repro_torch.models.common import tree_leaves  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.train import loss_and_grads  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 B, S = 2, 10
@@ -197,24 +203,13 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
         convert.params_from_numpy({"w": np.zeros(2, np.float32)})
 
 
-@pytest.mark.parametrize("family", ["audio"])
+@pytest.mark.parametrize("family", ["speech"])
 def test_families_not_yet_ported_raise(family):
+    """Every family of the reference is ported; one it does not know is
+    refused by name."""
     cfg = granite_8b.SMOKE_CONFIG.replace(family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match=f"unknown family '{family}'"):
         param_specs(cfg)
-
-
-@pytest.mark.parametrize("entry", ["forward", "prefill"])
-def test_frontend_embeds_are_refused_until_a_frontend_is_ported(entry):
-    """The audio frontend's prefix waits for its codebooks (the vision
-    prefix is ported: tests/test_torch_moe.py)."""
-    _, tcfg, _, tparams = _configs("float32")
-    tcfg = tcfg.replace(family="audio", frontend="audio")
-    batch = {"tokens": torch.from_numpy(_tokens(tcfg.vocab_size)),
-             "frontend_embeds": torch.zeros(B, 2, tcfg.d_model)}
-    fn = forward if entry == "forward" else prefill
-    with pytest.raises(NotImplementedError, match="frontend_embeds.*ROADMAP"):
-        fn(tcfg, tparams, batch)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -262,7 +257,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "repro_torch.configs.deepseek_moe_16b",
             "repro_torch.configs.qwen3_moe_235b_a22b",
             "repro_torch.configs.qwen3_vl_30b_a3b",
-            "repro_torch.configs.internvl2_76b"} <= set(modules)
+            "repro_torch.configs.internvl2_76b",
+            "repro_torch.configs.musicgen_medium",
+            "repro_torch.configs.qwen15_32b",
+            "repro_torch.configs.llama3_405b",
+            "repro_torch.configs.deepseek_67b",
+            "repro_torch.models.transformer",
+            "repro_torch.models.model"} <= set(modules)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
@@ -307,3 +308,118 @@ def test_port_entry_points_run_with_the_jax_package_blocked(tmp_path, argv,
         assert result["passed"] and result["fsck_clean_after"]
     else:
         assert "does not exist" in out.stderr
+
+
+# ---------------------------------------------------------------------------
+# The registry, and qwen1.5-32b's QKV bias against JAX
+# ---------------------------------------------------------------------------
+
+def test_registry_lists_every_config_of_the_jax_registry():
+    assert registry.ARCH_IDS == jax_registry.ARCH_IDS
+    assert registry._ALIASES == jax_registry._ALIASES
+    for alias, name in jax_registry._ALIASES.items():
+        assert registry.get_config(alias) is registry.get_config(name)
+    with pytest.raises(ValueError, match="unknown architecture"):
+        registry.get_config("gpt-2")
+
+
+@pytest.mark.parametrize("which", ["get_config", "get_smoke_config"])
+@pytest.mark.parametrize("arch", jax_registry.ARCH_IDS)
+def test_every_config_matches_jax(arch, which):
+    jcfg = getattr(jax_registry, which)(arch)
+    tcfg = getattr(registry, which)(arch)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert tcfg.param_count() == jcfg.param_count()
+    assert tcfg.active_param_count() == jcfg.active_param_count()
+
+
+@functools.lru_cache(maxsize=None)
+def _qwen_tree(seed=1):
+    """qwen1.5-32b smoke weights as numpy, the biases (zeros at init) and
+    the norm scales drawn so that the bias path carries weight."""
+    tree = convert.params_to_numpy(init_params(
+        param_specs(qwen15_32b.SMOKE_CONFIG), seed=seed, device="cpu"))
+    rng = np.random.default_rng(seed)
+    for name, (base, scale) in {"bq": (0.0, 0.5), "bk": (0.0, 0.5),
+                                "bv": (0.0, 0.5), "attn_norm": (1.0, 0.2),
+                                "mlp_norm": (1.0, 0.2)}.items():
+        shape = tree["layers"][name].shape
+        tree["layers"][name] = (base + scale * rng.standard_normal(shape)
+                                ).astype(np.float32)
+    return tree
+
+
+def _qwen_configs(dtype):
+    jcfg = jax_qwen.SMOKE_CONFIG.replace(compute_dtype=dtype)
+    tcfg = qwen15_32b.SMOKE_CONFIG.replace(compute_dtype=dtype)
+    assert jcfg.qkv_bias and tcfg.qkv_bias
+    tree = _qwen_tree()
+    return (jcfg, tcfg, jax.tree_util.tree_map(jnp.asarray, tree),
+            convert.params_from_numpy(tree, device="cpu"))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_qwen15_32b_forward_matches_jax(dtype):
+    """Forward with the QKV bias; the same weights without it (the
+    control) are far off, so the bias is on the compared path."""
+    jcfg, tcfg, jparams, tparams = _qwen_configs(dtype)
+    tokens = _tokens(jcfg.vocab_size)
+    jl, _ = jax_forward(jcfg, jparams, {"tokens": jnp.asarray(tokens)})
+    tl, _ = forward(tcfg, tparams, {"tokens": torch.from_numpy(tokens)})
+    assert tl.shape == (B, S, tcfg.vocab_size)
+    assert_allclose(_np(tl), _np(jl), **_tol(dtype))
+    no_bias = dict(tparams, layers={
+        k: torch.zeros_like(v) if k in ("bq", "bk", "bv") else v
+        for k, v in tparams["layers"].items()})
+    off, _ = forward(tcfg, no_bias, {"tokens": torch.from_numpy(tokens)})
+    assert float((off.float() - tl.float()).abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_qwen15_32b_prefill_then_decode_match_jax(dtype):
+    """Prefill of S tokens, the reference's cache padded as its engine pads
+    it, then three greedy decode steps."""
+    jcfg, tcfg, jparams, tparams = _qwen_configs(dtype)
+    tokens = _tokens(jcfg.vocab_size)
+    jl, jcache = jax_prefill(jcfg, jparams, {"tokens": jnp.asarray(tokens)})
+    jcache = {k: jnp.pad(v, ((0, 0), (0, 0), (0, 3), (0, 0), (0, 0)))
+              for k, v in jcache.items()}
+    tl, tcache = prefill(tcfg, tparams, {"tokens": torch.from_numpy(tokens)},
+                         cache=init_decode_state(tcfg, B, S + 3, device="cpu"))
+    assert_allclose(_np(tl), _np(jl), **_tol(dtype))
+    jstep = jax.jit(functools.partial(jax_decode_step, jcfg))
+    for i in range(3):
+        tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+        jl, jcache = jstep(jparams, jcache, jnp.asarray(tok), jnp.int32(S + i))
+        tl, tcache = decode_step(tcfg, tparams, tcache, torch.from_numpy(tok),
+                                 S + i)
+        assert_allclose(_np(tl), _np(jl), **_tol(dtype), err_msg=f"step {i}")
+    for k in ("k", "v"):
+        assert_allclose(_np(tcache[k]), _np(jcache[k]), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_qwen15_32b_loss_and_grads_match_jax(dtype):
+    """``loss_fn`` and its gradients (the biases' among them) against
+    ``jax.value_and_grad``: the loss at the dtype's tolerance, each leaf at
+    it with atol scaled by the leaf's largest element."""
+    jcfg, tcfg, jparams, tparams = _qwen_configs(dtype)
+    tokens = _tokens(jcfg.vocab_size)
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jax_loss_fn(jcfg, p, {"tokens": jnp.asarray(tokens)}),
+        has_aux=True))(jparams)
+    loss, _, grads = loss_and_grads(tcfg, tparams,
+                                    {"tokens": torch.from_numpy(tokens)})
+    tol = _tol(dtype)
+    assert_allclose(float(loss), float(jloss), **tol)
+    flat = jax.tree_util.tree_leaves_with_path(jgrads)
+    assert len(flat) == len(tree_leaves(grads))
+    for (path, want), got in zip(flat, tree_leaves(grads)):
+        want = np.asarray(want, np.float32)
+        assert tuple(got.shape) == want.shape
+        scale = max(float(np.abs(want).max()), 1e-30)
+        assert_allclose(_np(got), want, rtol=tol["atol"],
+                        atol=tol["atol"] * scale,
+                        err_msg=jax.tree_util.keystr(path))
+    assert all(float(grads["layers"][k].abs().max()) > 0
+               for k in ("bq", "bk", "bv"))
