@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            (from the repository root, one CUDA card)
     python3 chip_smoke.py --kernels rmsnorm,wkv6   (phases 1-3 for those only)
-    python3 chip_smoke.py --skip-serving           (phases 1-3, 6-13 and 14-16 (b, c))
+    python3 chip_smoke.py --skip-serving           (phases 1-3, 6-13, 14-16 (b, c) and 17)
     python3 chip_smoke.py --only-moe               (phases 1-3 and 14)
     python3 chip_smoke.py --only-hybrid            (phases 1-3 and 15)
     python3 chip_smoke.py --only-audio             (phases 1-3 and 16)
@@ -256,6 +256,18 @@ Phases, each of which raises (exit code != 0) on failure:
    2-layer full-width cut (40 heads of 128, a QKV bias) the same way as its
    serving cut, with the heads control.
 
+17. The port's data-plane examples, host code that launches no kernel, in
+   process (``runpy``) from the repository's ``examples/``:
+   ``quickstart_torch.py`` (two producers, four readers at dp 2 x cp 2,
+   watermarks, a reclaim, a replacement writer), ``failover_torch.py``
+   (a producer crash and its exactly-once takeover, a trainer killed
+   between its model upload and its RunManifest commit, the aligned
+   resume, a reclaim) and ``sft_mixture_torch.py`` (three weighted streams,
+   one composite token, mix-aware reclamation, the resume). Each must
+   finish with its own asserts held and tell its story (EXAMPLE_STORIES);
+   each one's lines and seconds are printed, and the phase's wall seconds
+   beside the ``nvidia-smi`` line.
+
 The last lines are the ``nvidia-smi`` name/power-limit line as it prints
 it, one JSON object with every kernel's numbers, and ``{"ok": true,
 "device": {...}}``. A kernel's ``launches`` is its count on the serving path
@@ -263,8 +275,8 @@ it was ported for (granite-8b for RMSNorm and both attention kernels,
 rwkv6-3b for WKV6); ``launches_by_path`` gives each path's count, the
 training paths' over their 3 steps, the fused path's over its 53, the
 resume path's over its 11, the failure path's over its steps, the streams
-path's over its 22, phase 13's host path's (none), and phase 14's, 15's
-and 16's serving and training paths'.
+path's over its 22, phase 13's host path's (none), phase 14's, 15's and
+16's serving and training paths', and phase 17's host path's (none).
 """
 from __future__ import annotations
 
@@ -384,6 +396,26 @@ CHAOS_SCENARIOS = (           # src/repro_torch/chaos/scenarios.py's registry
     "producer_precommit_kill", "reclaimer_midtrim_kill", "shard_conflict_storm",
     "store_outage_resume", "trainer_midcheckpoint_kill")
 HOST_TIMEOUT_S = 300          # a subprocess of phase 13
+# phase 17: each data-plane example of the port and lines its story must
+# hold: the reference's counts of batches, steps, offsets and TGBs. Where a
+# writer commits on the DAC's cadence, which follows the wall clock, the
+# number of manifest versions moves with the host's load, and with it the
+# versions in a cursor and the bytes a reclaim frees: none of those is
+# pinned
+EXAMPLE_STORIES = {
+    "quickstart": ("6 global batches, producer offsets={'worker0': 2, 'worker1': 2}",
+                   "consumed 6 steps", "reclaimed 6 TGBs (",
+                   "worker0 replacement resumes at stream offset 3"),
+    "failover": ("committed through offset 2 (3 steps visible)",
+                 "replacement resumed at offset 3; stream is dense: [0, 1, 2, 3]...[8, 9]",
+                 "RunManifest seq 0 @ step 4", "resumed at step 4",
+                 "reclaimer deleted 4 TGBs below the aligned checkpoint",
+                 "OK: exactly-once + aligned model/data recovery + reclamation all hold"),
+    "sft_mixture": ("published per stream: {'code': 6, 'math-sft': 2, 'web': 12}",
+                    "12 mixed steps consumed: {'code': 4, 'math-sft': 1, 'web': 7}",
+                    "composite cursor: step=12", "reclaimed 12 TGBs across streams",
+                    "resumed and drained to global step 20"),
+}
 # phase 14: the MoE family and the vision prefix. deepseek-moe-16b serves at
 # full width and depth with phase 4's settings; qwen3-vl-30b-a3b trains as a
 # full-width cut (all 48 layers' fp32 state would take 489 GB) on phase 6's
@@ -2814,6 +2846,30 @@ def phase_ops_chaos(smi):
         raise AssertionError(f"ops/chaos (a): {bad}; trace spans {n_spans}")
 
 
+def phase_examples(smi):
+    """Phase 17: ``examples/{quickstart,failover,sft_mixture}_torch.py`` in
+    process, each held to its own asserts and to its lines of
+    EXAMPLE_STORIES. Host code: no tensor, no kernel."""
+    import runpy
+
+    t_phase = time.monotonic()
+    for name, story in EXAMPLE_STORIES.items():
+        out = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(str(ROOT / "examples" / f"{name}_torch.py"), run_name="__main__")
+        wall = time.monotonic() - t0
+        lines = out.getvalue().splitlines()
+        missing = [want for want in story if not any(want in line for line in lines)]
+        for line in lines:
+            log(f"examples: {name}: {line}")
+        log(f"examples: {name}_torch.py finished in {wall:.3f} s, {len(lines)} lines, "
+            f"{len(story) - len(missing)} of {len(story)} story lines held")
+        if missing:
+            raise AssertionError(f"examples: {name}_torch.py did not tell {missing}")
+    log(f"examples: phase 17 wall {time.monotonic() - t_phase:.3f} s  [{smi}]")
+
+
 def phase_train_vs_plain(torch, label, cfg, control_name, control, prefix=0, layers=2):
     """A ``layers``-layer full-width cut: one train step's loss, gradients
     and grad norm, kernel path against plain path (the MoE family under the
@@ -2990,7 +3046,8 @@ def main() -> int:
                     help="comma-separated kernel names: build and check only "
                          "these (phases 1-3) and skip the serving phases")
     ap.add_argument("--skip-serving", action="store_true",
-                    help="run phases 1-3, 6-13, 14 (b, c), 15 (b, c) and 16 (b, c) only")
+                    help="run phases 1-3, 6-13, 14 (b, c), 15 (b, c), 16 (b, c) "
+                         "and 17 only")
     ap.add_argument("--only-moe", action="store_true",
                     help="run phases 1-3 and 14 only")
     ap.add_argument("--only-hybrid", action="store_true",
@@ -3093,6 +3150,13 @@ def main() -> int:
     # -- 16. the audio family, and qwen1.5-32b's QKV bias -----------------------------------
     if not (args.only_moe or args.only_hybrid):
         phase_audio(torch, kcommon, paths, args.skip_serving, free, done)
+
+    # -- 17. the data-plane examples (host code) ------------------------------------------
+    if not only:
+        kcommon.reset_launches()
+        phase_examples(smi)
+        paths["examples (host)"] = dict(kcommon.launches)
+        done(17)
 
     # launches: each kernel's count on the serving path it was ported for
     # (granite-8b for K1-K3, rwkv6-3b for K4; their training paths with

@@ -27,16 +27,20 @@ from repro_torch.core.faults import (BrownoutPhase, FaultPolicy, FaultStats,
 from repro_torch.core.lifecycle import (Reclaimer, Watermark,
                                         global_watermark, read_trim_marker,
                                         read_watermarks, write_watermark)
-from repro_torch.core.manifest import (DatasetView, ManifestStore,
-                                       ProducerState, ShardedManifestStore,
+from repro_torch.core.manifest import (MANIFEST_FORMAT_DELTA,
+                                       MANIFEST_FORMAT_FLAT, CompactSegment,
+                                       DatasetView, ManifestStore,
+                                       MergedDatasetView, ProducerState,
+                                       SegmentStore, ShardedManifestStore,
                                        StepUnavailable, open_manifest_store,
                                        read_shard_config, write_shard_config)
-from repro_torch.core.objectstore import (ConditionalPutFailed,
+from repro_torch.core.objectstore import (DEFAULT_COALESCE_GAP,
+                                          ConditionalPutFailed,
                                           FaultInjector, FileObjectStore,
                                           InjectedCrash, IOPool,
                                           LatencyModel, MemoryObjectStore,
                                           Namespace, NoSuchKey, ObjectStore,
-                                          ZERO_LATENCY)
+                                          ZERO_LATENCY, coalesce_ranges)
 from repro_torch.core.producer import (Producer, ProducerStats,
                                        run_producer_loop)
 from repro_torch.core.resilience import (AIMDGovernor, CircuitBreaker,
@@ -45,8 +49,8 @@ from repro_torch.core.resilience import (AIMDGovernor, CircuitBreaker,
                                          StoreResilienceStats,
                                          shared_governor, wrap_store)
 from repro_torch.core.stats import LatencyWindow, percentile, percentiles
-from repro_torch.core.tgb import (TGBBuilder, TGBDescriptor, TGBFooter,
-                                  TGBReader)
+from repro_torch.core.tgb import (SPECULATIVE_TAIL_BYTES, TGBBuilder,
+                                  TGBDescriptor, TGBFooter, TGBReader)
 
 __all__ = [
     "BatchTimeout", "TransientStoreError", "ThrottledError",
@@ -54,7 +58,8 @@ __all__ = [
     "retry_transient",
     "Clock", "SystemClock", "VirtualClock",
     "BrownoutPhase", "FaultPolicy", "FaultStats", "FaultyObjectStore",
-    "CompactStats", "Compactor",
+    "CompactStats", "Compactor", "CompactSegment", "SegmentStore",
+    "MergedDatasetView",
     "CommitProtocol", "CommitResult", "ShardStats", "ShardedCommitProtocol",
     "ShardChooser",
     "Consumer", "ConsumerStats", "MeshPosition", "convert_logical_step",
@@ -65,15 +70,16 @@ __all__ = [
     "read_watermarks", "write_watermark",
     "DatasetView", "ManifestStore", "ProducerState", "ShardedManifestStore",
     "StepUnavailable", "open_manifest_store", "read_shard_config",
-    "write_shard_config",
+    "write_shard_config", "MANIFEST_FORMAT_DELTA", "MANIFEST_FORMAT_FLAT",
     "ConditionalPutFailed", "FaultInjector", "FileObjectStore",
     "InjectedCrash", "IOPool", "LatencyModel",
     "MemoryObjectStore", "Namespace", "NoSuchKey", "ObjectStore",
-    "ZERO_LATENCY",
+    "ZERO_LATENCY", "DEFAULT_COALESCE_GAP", "coalesce_ranges",
     "LatencyWindow", "percentile", "percentiles",
     "Producer", "ProducerStats", "run_producer_loop",
     "AIMDGovernor", "CircuitBreaker", "HedgePolicy", "ResilienceConfig",
     "ResilientStore", "RetryBudget", "StoreResilienceStats",
     "shared_governor", "wrap_store",
+    "SPECULATIVE_TAIL_BYTES",
     "TGBBuilder", "TGBDescriptor", "TGBFooter", "TGBReader",
 ]

@@ -338,10 +338,17 @@ class Consumer:
     def next_batch(self, timeout_s: Optional[float] = None) -> bytes:
         """Blocking read of this rank's slice for the next global step."""
         t0 = self.clock.now()
-        tgb_step, d, c = remap_step(self.step, self.pos,
-                                    self._tgb_dp(), self._tgb_cp())
+        layout = (self._tgb_dp(), self._tgb_cp())
+        tgb_step, d, c = remap_step(self.step, self.pos, *layout)
         with trace_span("consumer.wait", cat="read", step=self.step):
             self._wait_for_step(tgb_step, timeout_s)
+            if (self._tgb_dp(), self._tgb_cp()) != layout:
+                # before the first view the layout was this rank's own
+                # topology; the TGBs' is another: remap against theirs
+                tgb_step, d, c = remap_step(self.step, self.pos,
+                                            self._tgb_dp(), self._tgb_cp())
+                self._wait_for_step(tgb_step, None if timeout_s is None else
+                                    timeout_s - (self.clock.now() - t0))
         key3 = (tgb_step, d, c)
         with self._prefetch_lock:
             data = self._prefetched.pop(key3, None)

@@ -1,8 +1,9 @@
 """The port's tgb data plane against the JAX package's, on one object store.
 
-A store written by either package reads back identically in the other:
-every (d, c) reader yields the same ``Batch`` fields (step, tokens) and the
-same Checkpoint tokens, and a token minted by one package restores a reader
+A store written by either package reads back identically in the other,
+over one manifest chain (flat) or two shards (delta): every (d, c) reader
+yields the same ``Batch`` fields (step, tokens) and the same Checkpoint
+tokens, and a token minted by one package restores a reader
 of the other. The facade's adversarial probes raise the same typed errors as
 in ``repro``. The mq and colocated baselines open and match the reference,
 and the ``resilience=`` and ``obs_snap_interval_s=`` options write what the
@@ -37,11 +38,12 @@ def _stream(n_batches: int = N_BATCHES, vocab: int = 1000) -> np.ndarray:
     return ((np.arange(n) * 7 + 3) % vocab).astype(np.int32)
 
 
-def _write(pkg, core, tokens) -> object:
-    """One store holding ``tokens`` written by ``pkg``'s tgb writer."""
+def _write(pkg, core, tokens, manifest_shards=None) -> object:
+    """One store holding ``tokens`` written by ``pkg``'s tgb writer (over
+    ``manifest_shards`` delta-format chains when given)."""
     store = core.MemoryObjectStore()
     sess = pkg.open_dataplane(store, pkg.Topology(**TOPO_ARGS),
-                              namespace=NS)
+                              namespace=NS, manifest_shards=manifest_shards)
     with sess.writer("w0") as w:
         w.write_tokens(tokens)
     sess.close()
@@ -77,9 +79,16 @@ def _view(store, pkg):
     return twin
 
 
-@pytest.mark.parametrize("writer", ["repro", "repro_torch"])
-def test_readers_of_both_packages_agree_on_either_writers_store(writer):
-    store = _write(*WRITERS[writer], _stream())
+@pytest.mark.parametrize("writer,shards", [
+    pytest.param("repro", None, id="repro"),
+    pytest.param("repro_torch", None, id="repro_torch"),
+    pytest.param("repro", 2, id="repro-sharded"),
+    pytest.param("repro_torch", 2, id="repro_torch-sharded")])
+def test_readers_of_both_packages_agree_on_either_writers_store(writer,
+                                                                shards):
+    store = _write(*WRITERS[writer], _stream(), manifest_shards=shards)
+    assert any(k.endswith("shards.cfg") for k in store.list("")) \
+        == (shards is not None)
     jax_rows = _read_all(jdp, store, N_BATCHES)
     torch_rows = _read_all(tdp, store, N_BATCHES)
     assert torch_rows == jax_rows
