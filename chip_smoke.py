@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only-moe               (phases 1-3 and 14)
     python3 chip_smoke.py --only-hybrid            (phases 1-3 and 15)
     python3 chip_smoke.py --only-audio             (phases 1-3 and 16)
+    python3 chip_smoke.py --only-dryrun            (phases 1-3 and 18)
 
 Phases, each of which raises (exit code != 0) on failure:
 
@@ -268,6 +269,29 @@ Phases, each of which raises (exit code != 0) on failure:
    each one's lines and seconds are printed, and the phase's wall seconds
    beside the ``nvidia-smi`` line.
 
+18. The dry run of the port on the card's machine. (a) ``python -m
+   repro_torch.launch.dryrun`` in one subprocess a cell, all at once, each
+   within DRYRUN_TIMEOUT_S, over the named cells DRYRUN_CELLS on both
+   production meshes (16x16, 2x16x16) with fake CUDA DTensors over the
+   ``"fake"`` process group (no card needed; the 88-cell grid takes longer
+   than this script's budget and runs in a call of its own): every record
+   ``ok`` or the reference's ``skipped``; then ``python -m
+   repro_torch.launch.roofline`` over the records, its rows printed with
+   the cells' count and the wall. (b) The card check, on the full-width
+   paths that launch K1-K4, each under ``torch.profiler`` read by
+   ``launch.hlo_analysis.analyze_profile``: granite-8b's serving batch
+   (phase 4's settings) must launch K1 36, K2 2336 and K3 1116 times; the
+   granite 8-layer train step (phase 6's) K2 33 and K1 16 times; rwkv6-3b's
+   prefill K2 97 and K4 32 times, by the wrappers' counts exactly and by
+   the profile's kernel names but for the device events its tracer drops
+   (at most one in a thousand). For a prefill and a decode step of granite-8b, its
+   train step and rwkv6-3b's prefill, ``FlopCounterMode`` over the run on
+   the card must equal, exactly, the FLOPs of the same program's dry run on
+   a 1x1 mesh at the same shapes; the dry run's ``peak_per_device_bytes``
+   is printed beside the run's ``max_memory_allocated``, and the measured
+   step beside the roofline's step time of that 1x1 record, with the
+   ``nvidia-smi`` line.
+
 The last lines are the ``nvidia-smi`` name/power-limit line as it prints
 it, one JSON object with every kernel's numbers, and ``{"ok": true,
 "device": {...}}``. A kernel's ``launches`` is its count on the serving path
@@ -437,6 +461,12 @@ HYBRID_TRAIN_LAYERS = 7       # of 81: 0.981 B parameters, 15.7 GB of fp32 state
 # full-width cut
 AUDIO_PREFIX = 128
 AUDIO_TRAIN_LAYERS = 48       # all of them
+# phase 18: the dry run's named cells (arch, shape), each on both
+# production meshes, and the seconds a cell's subprocess may take
+DRYRUN_CELLS = (("granite_8b", "train_4k"), ("deepseek_moe_16b", "train_4k"),
+                ("zamba2_7b", "long_500k"), ("llama3_405b", "train_4k"))
+DRYRUN_TIMEOUT_S = 400
+DRYRUN_OUT = ROOT / "build" / "dryrun"
 # the forward kernels' names as the profiler lists them
 KERNEL_SYMBOLS = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "fa_fwd_kernel",
                   "decode_attention": "decode_kernel", "wkv6": "wkv6_kernel"}
@@ -3054,6 +3084,8 @@ def main() -> int:
                     help="run phases 1-3 and 15 only")
     ap.add_argument("--only-audio", action="store_true",
                     help="run phases 1-3 and 16 only")
+    ap.add_argument("--only-dryrun", action="store_true",
+                    help="run phases 1-3 and 18 only")
     args = ap.parse_args()
     import torch
 
@@ -3118,7 +3150,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     paths = {}  # path -> its launches
-    only = args.only_moe or args.only_hybrid or args.only_audio
+    only = args.only_moe or args.only_hybrid or args.only_audio or args.only_dryrun
     if not (args.skip_serving or only):
         # -- 4. granite-8b at full width, its profile and its 2-layer cut -----------------
         engine, paths["granite-8b"] = phase_serve(torch, kcommon, get_config("granite_8b"))
@@ -3140,15 +3172,15 @@ def main() -> int:
     if not only:
         phases_6_to_13(torch, kcommon, paths, smi, free, done)
     # -- 14. the MoE family and the vision prefix -------------------------------------------
-    if not (args.only_hybrid or args.only_audio):
+    if not (args.only_hybrid or args.only_audio or args.only_dryrun):
         phase_moe(torch, kcommon, paths, args.skip_serving, free, done)
 
     # -- 15. the Mamba2 / Zamba2 hybrid ------------------------------------------------------
-    if not (args.only_moe or args.only_audio):
+    if not (args.only_moe or args.only_audio or args.only_dryrun):
         phase_hybrid(torch, kcommon, paths, args.skip_serving, free, done)
 
     # -- 16. the audio family, and qwen1.5-32b's QKV bias -----------------------------------
-    if not (args.only_moe or args.only_hybrid):
+    if not (args.only_moe or args.only_hybrid or args.only_dryrun):
         phase_audio(torch, kcommon, paths, args.skip_serving, free, done)
 
     # -- 17. the data-plane examples (host code) ------------------------------------------
@@ -3158,13 +3190,20 @@ def main() -> int:
         paths["examples (host)"] = dict(kcommon.launches)
         done(17)
 
+    # -- 18. the dry run and the card check of its counts ------------------------------------
+    if not (args.only_moe or args.only_hybrid or args.only_audio):
+        phase_dryrun(smi)
+        phase_card_check(torch, kcommon, paths, smi, free)
+        done(18)
+
     # launches: each kernel's count on the serving path it was ported for
     # (granite-8b for K1-K3, rwkv6-3b for K4; their training paths with
     # --skip-serving, the MoE, hybrid or audio paths with --only-moe,
     # --only-hybrid or --only-audio), and each path's count beside it
     for kname, e in entries.items():
         path = "rwkv6-3b" if kname == "wkv6" else "granite-8b"
-        e["launches_path"] = next(p for p in (path, f"{path} train", *paths) if p in paths)
+        e["launches_path"] = next(p for p in (path, f"{path} train", f"{path} card check",
+                                              *paths) if p in paths)
         e["launches"] = paths[e["launches_path"]][kname]
         e["launches_by_path"] = {p: launches[kname] for p, launches in paths.items()}
 
@@ -3198,6 +3237,207 @@ def phase_moe(torch, kcommon, paths, skip_serving, free, done):
                          control_k1_without_mask, prefix=VL_PREFIX)
     free()
     done(14)
+
+
+def phase_dryrun(smi):
+    """Phase 18 (a): the dry run's named cells on both meshes, one
+    subprocess a cell, all at once, then the roofline over their records."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    if DRYRUN_OUT.exists():
+        for old in DRYRUN_OUT.glob("*.json"):
+            old.unlink()
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    t0 = time.monotonic()
+    procs = [(arch, shape, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "both", "--out", str(DRYRUN_OUT)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)) for arch, shape in DRYRUN_CELLS]
+    failed = []
+    for arch, shape, proc in procs:
+        try:
+            out, _ = proc.communicate(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                                  - (time.monotonic() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+            failed.append(f"{arch} x {shape}: timed out")
+        for line in out.splitlines():
+            if line.startswith("[dryrun]"):
+                log(f"  {line}")
+        if proc.returncode != 0:
+            failed.append(f"{arch} x {shape}: exit {proc.returncode}\n{out[-3000:]}")
+    wall = time.monotonic() - t0
+    records = [json.loads(p.read_text()) for p in sorted(DRYRUN_OUT.glob("*.json"))]
+    bad = [r for r in records if r["status"] not in ("ok", "skipped")]
+    if failed or bad or len(records) != 2 * len(DRYRUN_CELLS):
+        raise AssertionError(f"dry run: {failed} {[(r['arch'], r['shape'], r['mesh'], r.get('error')) for r in bad]}")
+    log(f"dry run: {len(records)} cells ({sum(r['status'] == 'ok' for r in records)} ok, "
+        f"{sum(r['status'] == 'skipped' for r in records)} skipped) in {wall:.1f} s of wall, "
+        f"{len(DRYRUN_CELLS)} subprocesses  [{smi}]")
+    roof = subprocess.run([sys.executable, "-m", "repro_torch.launch.roofline", "--dir",
+                           str(DRYRUN_OUT)], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=120)
+    if roof.returncode != 0:
+        raise AssertionError(f"roofline: exit {roof.returncode}\n{roof.stderr[-3000:]}")
+    log("roofline (projections for a mesh of H100s from the dry run, not measurements):")
+    for line in roof.stdout.splitlines():
+        log(f"  {line}")
+
+
+def dry_run_1x1(torch, cfg, shape, microbatches=None):
+    """The dry run of ``cfg`` at ``shape`` (an ``InputShape``) on a 1x1 mesh
+    of fake CUDA tensors: (costs, the 1x1 record's roofline row, its
+    peak_per_device_bytes)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.kernels.common import register_shardings
+    from repro_torch.launch import dryrun, roofline
+
+    register_shardings()
+    dryrun._init_fake_group(1)
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(1).reshape(1, 1),
+                          mesh_dim_names=("data", "model"))
+        costs, meta, _n = dryrun.trace_costs(cfg, shape, mesh, device="cuda",
+                                             microbatches=microbatches)
+    finally:
+        dist.destroy_process_group()
+    rec = {"arch": cfg.name, "shape": shape.name, "mesh": "1x1", "status": "ok",
+           "kind": shape.kind, "family": cfg.family, "seq_len": shape.seq_len,
+           "global_batch": shape.global_batch, "params": cfg.param_count(),
+           "active_params": cfg.active_param_count(), **dryrun.cost_record(costs, meta)}
+    return costs, roofline.analyze_record(rec), rec["memory"]["peak_per_device_bytes"]
+
+
+def phase_card_check(torch, kcommon, paths, smi, free):
+    """Phase 18 (b): launches by kernel name from a profile of each path,
+    and the dry run's FLOPs, memory and roofline step beside the card's."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.hlo_analysis import analyze_profile
+    from repro_torch.models import decode_step, init_decode_state, prefill
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    def profiled(label, fn, want):
+        """Run ``fn`` under torch.profiler: the wrappers' counts must equal
+        ``want``, and so must the launches ``analyze_profile`` finds by
+        kernel name, but for at most one in a thousand (at least one)
+        missing: the tracer has dropped a device event now and then (one
+        of 2336 K2 launches, one of 97), and never added one."""
+        kcommon.reset_launches()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        p = analyze_profile(prof)
+        got = {k: p.launches(KERNEL_SYMBOLS[k]) for k in kcommon.KERNELS}
+        counts = dict(kcommon.launches)
+        missed = {k: want[k] - got[k] for k in want}
+        if counts != want or any(not 0 <= m <= max(1, want[k] // 1000)
+                                 for k, m in missed.items()):
+            raise AssertionError(f"{label}: launches {counts}, profiled {got}, want {want}")
+        log(f"card check {label}: launches {counts} = the table's; profiled by kernel name "
+            f"{got} (missed {sum(missed.values())}); device busy {p.busy:.1%} of "
+            f"{p.wall_ms:.1f} ms  [{smi}]")
+        return counts
+
+    def counted(fn):
+        """(fn's output, its wall ms, its peak bytes) of a plain run, then
+        the FLOPs FlopCounterMode counts over a second run."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        with FlopCounterMode(display=False) as fc:
+            fn()
+        torch.cuda.synchronize()
+        return out, ms, peak, fc.get_total_flops()
+
+    def compare(label, real_flops, cfg, shape, ms, peak, microbatches=None):
+        costs, row, dry_peak = dry_run_1x1(torch, cfg, shape, microbatches)
+        if int(costs.flops) != int(real_flops):
+            raise AssertionError(f"{label}: dry run {costs.flops:.6e} FLOPs, the card's "
+                                 f"FlopCounterMode {real_flops:.6e}")
+        log(f"card check {label}: FLOPs {real_flops:.6e} on the card = dry run (1x1); "
+            f"dry-run peak_per_device_bytes {dry_peak / 2**30:.2f} GiB beside "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB; measured {ms:.3f} ms beside the "
+            f"roofline step {row.step_time_s * 1e3:.3f} ms ({row.dominant}-bound; "
+            f"compute {row.compute_s * 1e3:.3f}, memory {row.memory_s * 1e3:.3f} ms)  [{smi}]")
+
+    # granite-8b's serving batch (phase 4's settings)
+    cfg = get_config("granite_8b")
+    engine = ServeEngine(cfg, serving_weights(torch, cfg), max_seq=MAX_SEQ, device="cuda")
+    rng = np.random.default_rng(SEED)
+
+    def requests(n_new):
+        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, PROMPT, dtype=np.int32),
+                        max_new_tokens=n_new) for i in range(BATCH)]
+
+    engine.run_batch(requests(2))  # warm-up
+    paths["granite-8b card check"] = profiled(
+        "granite-8b serving batch", lambda: engine.run_batch(requests(NEW_TOKENS)),
+        dense_launches(cfg, NEW_TOKENS - 1))
+    tokens = token_grid(torch, cfg, np.random.default_rng(SEED), BATCH, PROMPT)
+    with torch.inference_mode():
+        state = init_decode_state(cfg, BATCH, MAX_SEQ, device="cuda")
+        (logits, state), ms, peak, flops = counted(
+            lambda: prefill(cfg, engine.params, {"tokens": tokens}, cache=state))
+        compare("granite-8b prefill", flops, cfg, InputShape("card", PROMPT, BATCH, "prefill"),
+                ms, peak)
+        tok = torch.argmax(logits, dim=-1)
+        _out, ms, peak, flops = counted(
+            lambda: decode_step(cfg, engine.params, state, tok, PROMPT))
+        compare("granite-8b decode step", flops, cfg,
+                InputShape("card", MAX_SEQ, BATCH, "decode"), ms, peak)
+    del engine, state, logits
+    free()
+
+    # the granite 8-layer train cut (phase 6's), one step
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.train import OptimizerConfig, StepConfig, init_opt_state, make_train_step
+    cut = cfg.replace(num_layers=GRANITE_TRAIN_LAYERS)
+    params = init_params(param_specs(cut), seed=SEED, device="cuda")
+    opt = init_opt_state(params)
+    step = make_train_step(cut, OptimizerConfig(**TRAIN_OPT), StepConfig())
+    batch = train_batch(torch, cut)
+    step(params, opt, batch)  # warm-up
+    paths["granite-8b train card check"] = profiled(
+        f"granite-8b train step ({GRANITE_TRAIN_LAYERS} layers)",
+        lambda: step(params, opt, batch),
+        {"rmsnorm": 4 * GRANITE_TRAIN_LAYERS + 1, "flash_attention": 2 * GRANITE_TRAIN_LAYERS,
+         "decode_attention": 0, "wkv6": 0})
+    _out, ms, peak, flops = counted(lambda: step(params, opt, batch))
+    compare(f"granite-8b train step ({GRANITE_TRAIN_LAYERS} layers)", flops, cut,
+            InputShape("card", TRAIN_SEQ, TRAIN_GB, "train"), ms, peak, microbatches=1)
+    del params, opt, step, batch
+    free()
+
+    # rwkv6-3b's prefill
+    cfg = get_config("rwkv6_3b")
+    params = serving_weights(torch, cfg)
+    tokens = token_grid(torch, cfg, np.random.default_rng(SEED), BATCH, PROMPT)
+    with torch.inference_mode():
+        state = init_decode_state(cfg, BATCH, MAX_SEQ, device="cuda")
+        prefill(cfg, params, {"tokens": tokens}, cache=state)  # warm-up
+        paths["rwkv6-3b card check"] = profiled(
+            "rwkv6-3b prefill",
+            lambda: prefill(cfg, params, {"tokens": tokens}, cache=state),
+            rwkv_launches(cfg, 0))
+        _out, ms, peak, flops = counted(
+            lambda: prefill(cfg, params, {"tokens": tokens}, cache=state))
+        compare("rwkv6-3b prefill", flops, cfg, InputShape("card", PROMPT, BATCH, "prefill"),
+                ms, peak)
+    del params, state
+    free()
 
 
 def phases_6_to_13(torch, kcommon, paths, smi, free, done):

@@ -10,6 +10,16 @@ seconds. Building happens at first use (or in ``build``), never at import.
 ``launches`` counts, per kernel, the launches made by its wrapper; a run
 resets it with ``reset_launches`` and reads it afterwards to show that the
 path went through the kernels.
+
+Each kernel's forward is an operator of the ``repro_torch`` library
+(``define_op``): its CPU and CUDA implementation is the wrapper (plain
+version on CPU tensors, the kernel or a raise on CUDA ones), its fake
+implementation gives the output shapes alone, so fake tensors and DTensors
+(``register_shardings``) trace it while plain meta tensors stay refused,
+and its FLOPs are registered with ``torch.utils.flop_counter``. The operators are registered
+through ``torch.library.Library`` rather than ``custom_op``: the
+lower-level route costs less host time a call, which the host-bound
+decode step pays at every launch (PERF.md, the kernel table).
 """
 from __future__ import annotations
 
@@ -20,7 +30,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, List
 
 import torch
 
@@ -33,6 +43,60 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+LIB = torch.library.Library("repro_torch", "FRAGMENT")
+#: (operator, sharding function) pairs, registered with DTensor on demand
+_SHARDINGS: List[tuple] = []
+_shardings_registered = False
+
+
+def define_op(name: str, schema: str, impl: Callable, fake: Callable,
+              flops: Callable, sharding: Callable):
+    """Define ``repro_torch::<name><schema>`` with ``impl`` for CPU and CUDA
+    tensors, ``fake`` for fake ones and ``flops`` (taking the tensor
+    arguments' shapes, the others as given, and ``out_shape``) for
+    ``FlopCounterMode``; ``sharding`` is its DTensor strategy (see
+    ``register_shardings``). Returns the operator's overload."""
+    from torch.utils.flop_counter import register_flop_formula
+
+    LIB.define(name + schema)
+    for key in ("CPU", "CUDA"):
+        LIB.impl(name, impl, key)
+
+    def fake_only(*args):
+        # ``register_fake`` also serves the Meta key: plain meta tensors,
+        # or a mix of devices, are refused there as the wrapper refuses them
+        from torch._subclasses.fake_tensor import FakeTensor
+        tensors = [a for a in args if isinstance(a, torch.Tensor)]
+        if not all(isinstance(t, FakeTensor) for t in tensors):
+            on_cpu(*tensors)
+            raise ValueError(f"{name} takes CPU or CUDA tensors")
+        return fake(*args)
+
+    torch.library.register_fake(f"repro_torch::{name}", fake_only, lib=LIB)
+    packet = getattr(torch.ops.repro_torch, name)
+    register_flop_formula(packet)(flops)
+    _SHARDINGS.append((packet.default, sharding))
+    return packet.default
+
+
+def register_shardings() -> None:
+    """Give DTensor each kernel operator's sharding strategy (once per
+    process; ``torch.distributed.tensor`` is imported only here)."""
+    global _shardings_registered
+    if _shardings_registered:
+        return
+    from torch.distributed.tensor.experimental import register_sharding
+    for op, fn in _SHARDINGS:
+        register_sharding(op)(fn)
+    _shardings_registered = True
+
+
+def mesh_divides(spec, *sizes: int) -> bool:
+    """True if every mesh dim of the DTensor ``spec``'s mesh divides each
+    of ``sizes``: a head dim shards only where each device keeps whole
+    query groups."""
+    return all(n % d == 0 for d in spec.mesh.shape for n in sizes)
 
 
 def cdiv(a: int, b: int) -> int:

@@ -1,6 +1,14 @@
 """Flash-decode wrapper: CUDA tensor -> ``csrc/decode_attention.cu`` (one
 launch: a cluster of CTAs per (batch, kv head) that merge in distributed
-shared memory); CPU tensor -> plain. Serving only, no gradient."""
+shared memory); CPU tensor -> plain. Serving only, no gradient.
+
+The operator ``repro_torch::decode_attention`` (``kernels/common.define_op``).
+Its FLOPs are the reference's dense decode products over the whole cache,
+4·B·H·T·dh; the kernel reads only the ``cur_index + 1`` valid positions.
+DTensors shard it on batch, and on heads where every mesh dim divides both
+the query and the KV heads (a cache sharded on its positions is gathered
+first).
+"""
 from __future__ import annotations
 
 import ctypes
@@ -9,8 +17,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.common import (aligned16, cdiv, launch, load, on_cpu,
-                                        require)
+from repro_torch.kernels.common import (aligned16, cdiv, define_op, launch,
+                                        load, mesh_divides, on_cpu, require)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -33,13 +41,11 @@ def decode_plan(n_valid: int) -> Tuple[int, int]:
     return n_tiles, min(MAX_CLUSTER, n_tiles)
 
 
-def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cur_index: int) -> torch.Tensor:
-    """q: (B, H, dh); caches: (B, T, G, dh); cache positions
-    ``[0, cur_index]`` are valid (``cur_index`` a host int)."""
-    cur_index = int(cur_index)
+def _decode_attention_impl(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, cur_index: int
+                           ) -> torch.Tensor:
     if on_cpu(q, k_cache, v_cache):
-        return decode_attention_ref(q, k_cache, v_cache, cur_index)
+        return decode_attention_ref(q, k_cache, v_cache, cur_index).contiguous()
     B, H, dh = q.shape
     T, G = k_cache.shape[1], k_cache.shape[2]
     require(q.dtype == k_cache.dtype == v_cache.dtype == torch.bfloat16,
@@ -64,3 +70,35 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
            out.data_ptr(), B, T, H, G, dh, n_valid, n_tiles, cluster,
            1.0 / math.sqrt(dh))
     return out
+
+
+def decode_attention_flops(q_shape, k_shape, v_shape, cur_index,
+                           out_shape=None, **kw) -> int:
+    """q.K and p.V over the whole cache, as the reference's dense decode
+    counts them."""
+    B, H, dh = q_shape
+    return 4 * B * H * k_shape[1] * dh
+
+
+def _decode_attention_sharding(q, k_cache, v_cache, cur_index):
+    from torch.distributed.tensor import Replicate, Shard
+    out = [([Replicate()], [Replicate()] * 3 + [None]),
+           ([Shard(0)], [Shard(0)] * 3 + [None])]
+    if mesh_divides(q, q.shape[1], k_cache.shape[2]):
+        out.append(([Shard(1)], [Shard(1), Shard(2), Shard(2), None]))
+    return out
+
+
+_decode_attention_op = define_op(
+    "decode_attention",
+    "(Tensor q, Tensor k_cache, Tensor v_cache, int cur_index) -> Tensor",
+    _decode_attention_impl,
+    lambda q, k_cache, v_cache, cur_index: torch.empty_like(q),
+    decode_attention_flops, _decode_attention_sharding)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cur_index: int) -> torch.Tensor:
+    """q: (B, H, dh); caches: (B, T, G, dh); cache positions
+    ``[0, cur_index]`` are valid (``cur_index`` a host int)."""
+    return _decode_attention_op(q, k_cache, v_cache, int(cur_index))

@@ -1,6 +1,13 @@
 """Flash attention as an autograd Function: CUDA tensor ->
 ``csrc/flash_attention.cu``; CPU tensor -> plain.
 
+The forward is the operator ``repro_torch::flash_attention_fwd``
+(``kernels/common.define_op``). Its FLOPs are counted as the reference's
+dense attention counts them: two products over the full S x T scores,
+4·B·H·S·T·dh; a causal kernel needs about half of that (the tiles above
+the diagonal are skipped). DTensors shard it on batch, and on heads where
+every mesh dim divides both the query and the KV heads.
+
 The backward is the reference's own rule
 (``src/repro/kernels/flash_attention/ops.py`` ``_bwd``): recompute the plain
 version and differentiate it.
@@ -12,8 +19,8 @@ import math
 
 import torch
 
-from repro_torch.kernels.common import (aligned16, launch, load, on_cpu,
-                                        require)
+from repro_torch.kernels.common import (aligned16, define_op, launch, load,
+                                        mesh_divides, on_cpu, require)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -23,12 +30,11 @@ _ARGTYPES = {"flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
 HEAD_DIMS = (64, 112, 128)
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
-    """The forward alone: K1 on CUDA tensors, ``flash_attention_ref`` on CPU
-    ones."""
+def _flash_attention_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool) -> torch.Tensor:
     if on_cpu(q, k, v):
-        return flash_attention_ref(q, k, v, causal)
+        # contiguous, as the fake implementation promises
+        return flash_attention_ref(q, k, v, causal).contiguous()
     B, S, H, dh = q.shape
     T, G = k.shape[1], k.shape[2]
     require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
@@ -51,6 +57,37 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def flash_attention_flops(q_shape, k_shape, v_shape, causal, out_shape=None,
+                          **kw) -> int:
+    """QK^T and PV over the full S x T, as the reference's dense attention
+    counts them."""
+    B, S, H, dh = q_shape
+    return 4 * B * H * S * k_shape[1] * dh
+
+
+def _flash_attention_sharding(q, k, v, causal):
+    from torch.distributed.tensor import Replicate, Shard
+    out = [([Replicate()], [Replicate()] * 3 + [None]),
+           ([Shard(0)], [Shard(0)] * 3 + [None])]
+    if mesh_divides(q, q.shape[2], k.shape[2]):
+        out.append(([Shard(2)], [Shard(2)] * 3 + [None]))
+    return out
+
+
+_flash_attention_op = define_op(
+    "flash_attention_fwd",
+    "(Tensor q, Tensor k, Tensor v, bool causal) -> Tensor",
+    _flash_attention_impl, lambda q, k, v, causal: torch.empty_like(q),
+    flash_attention_flops, _flash_attention_sharding)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """The forward alone: K1 on CUDA tensors, ``flash_attention_ref`` on CPU
+    ones."""
+    return _flash_attention_op(q, k, v, bool(causal))
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool, g: torch.Tensor):
     """(dq, dk, dv) in the inputs' dtype: the vjp of ``flash_attention_ref``
@@ -67,11 +104,20 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal):
         ctx.save_for_backward(q, k, v)
         ctx.causal = causal
-        return flash_attention_fwd(q, k, v, causal)
+        out = flash_attention_fwd(q, k, v, causal)
+        ctx.placements = getattr(out, "placements", None)
+        return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
+        if ctx.placements is not None:
+            # DTensors: the rule runs on the shards the forward ran on
+            from repro_torch.sharding.dtensor import run_local
+            pl = ctx.placements
+            return (*run_local(
+                lambda *t: flash_attention_bwd(*t[:3], ctx.causal, t[3]),
+                (q, k, v, g), (pl,) * 4, (pl,) * 3), None)
         return (*flash_attention_bwd(q, k, v, ctx.causal, g), None)
 
 

@@ -1,5 +1,9 @@
 """RMSNorm as an autograd Function: CUDA tensor -> ``csrc/rmsnorm.cu``; CPU
-tensor -> plain.
+tensor -> plain. The forward is the operator ``repro_torch::rmsnorm_fwd``
+(``kernels/common.define_op``): fake tensors get its output's shape, DTensors
+shard it on rows, and ``FlopCounterMode`` counts it as 0 FLOPs (no product:
+the reference's HLO reader counts dots only; its ~4 elementwise operations
+an element run on no tensor core).
 
 The backward is the reference's own rule (``src/repro/kernels/rmsnorm/ops.py``
 ``_bwd``): recompute the plain version and differentiate it.
@@ -10,17 +14,16 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.common import (aligned16, launch, load, on_cpu,
-                                        require)
+from repro_torch.kernels.common import (aligned16, define_op, launch, load,
+                                        on_cpu, require)
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"rmsnorm_fwd": [_P, _P, _P, _I, _I, ctypes.c_float, _P]}
 
 
-def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
-                eps: float = 1e-5) -> torch.Tensor:
-    """The forward alone: K2 on CUDA tensors, ``rmsnorm_ref`` on CPU ones."""
+def _rmsnorm_impl(x: torch.Tensor, scale: torch.Tensor,
+                  eps: float) -> torch.Tensor:
     if on_cpu(x, scale):
         return rmsnorm_ref(x, scale, eps)
     D = x.shape[-1]
@@ -39,6 +42,25 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
     launch("rmsnorm", lib.rmsnorm_fwd, x.device, x.data_ptr(),
            scale.data_ptr(), out.data_ptr(), x.numel() // D, D, float(eps))
     return out
+
+
+def _rmsnorm_sharding(x, scale, eps):
+    from torch.distributed.tensor import Replicate, Shard
+    rows = [([Shard(d)], [Shard(d), Replicate(), None])
+            for d in range(len(x.shape) - 1)]
+    return [([Replicate()], [Replicate(), Replicate(), None])] + rows
+
+
+_rmsnorm_op = define_op(
+    "rmsnorm_fwd", "(Tensor x, Tensor scale, float eps) -> Tensor",
+    _rmsnorm_impl, lambda x, scale, eps: torch.empty_like(x),
+    lambda *args, out_shape=None, **kw: 0, _rmsnorm_sharding)
+
+
+def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-5) -> torch.Tensor:
+    """The forward alone: K2 on CUDA tensors, ``rmsnorm_ref`` on CPU ones."""
+    return _rmsnorm_op(x, scale, float(eps))
 
 
 def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, eps: float,

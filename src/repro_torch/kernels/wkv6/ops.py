@@ -1,6 +1,12 @@
 """WKV6 as an autograd Function: CUDA tensor -> ``csrc/wkv6.cu``; CPU tensor
 -> plain.
 
+The forward is the operator ``repro_torch::wkv6_fwd``
+(``kernels/common.define_op``). Its FLOPs are the recurrence's two
+products a step and head, the state update k^T v and the readout r S:
+4·B·S·H·dh². DTensors shard it on batch, and on heads where every mesh
+dim divides them.
+
 From a zero state, as the Pallas kernel. The backward differentiates
 ``wkv6_chunked`` at the caller's chunk, the function the JAX model
 differentiates (``src/repro/models/rwkv6.py``); the reference's ``_bwd``
@@ -13,8 +19,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.common import (aligned16, launch, load, on_cpu,
-                                        require)
+from repro_torch.kernels.common import (aligned16, define_op, launch, load,
+                                        mesh_divides, on_cpu, require)
 from repro_torch.kernels.wkv6.ref import wkv6_chunked
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -23,9 +29,8 @@ HEAD_DIMS = (16, 64)  # rwkv6-3b's smoke and full heads
 DTYPES = (torch.bfloat16, torch.float32)
 
 
-def wkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             w: torch.Tensor, u: torch.Tensor, chunk: int):
-    """The forward alone: K4 on CUDA tensors, ``wkv6_chunked`` on CPU ones."""
+def _wkv6_impl(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor, chunk: int):
     if on_cpu(r, k, v, w, u):
         return wkv6_chunked(r, k, v, w, u, chunk)
     B, S, H, dh = r.shape
@@ -54,6 +59,40 @@ def wkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y, state
 
 
+def wkv6_flops(r_shape, k_shape, v_shape, w_shape, u_shape, chunk,
+               out_shape=None, **kw) -> int:
+    B, S, H, dh = r_shape
+    return 4 * B * S * H * dh * dh
+
+
+def _wkv6_fake(r, k, v, w, u, chunk):
+    B, S, H, dh = r.shape
+    return torch.empty_like(r), r.new_empty((B, H, dh, dh),
+                                            dtype=torch.float32)
+
+
+def _wkv6_sharding(r, k, v, w, u, chunk):
+    from torch.distributed.tensor import Replicate, Shard
+    out = [([Replicate(), Replicate()], [Replicate()] * 5 + [None]),
+           ([Shard(0), Shard(0)], [Shard(0)] * 4 + [Replicate(), None])]
+    if mesh_divides(r, r.shape[2]):
+        out.append(([Shard(2), Shard(1)], [Shard(2)] * 4 + [Shard(0), None]))
+    return out
+
+
+_wkv6_op = define_op(
+    "wkv6_fwd",
+    "(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, int chunk) "
+    "-> (Tensor, Tensor)",
+    _wkv6_impl, _wkv6_fake, wkv6_flops, _wkv6_sharding)
+
+
+def wkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, chunk: int):
+    """The forward alone: K4 on CUDA tensors, ``wkv6_chunked`` on CPU ones."""
+    return _wkv6_op(r, k, v, w, u, int(chunk))
+
+
 def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              w: torch.Tensor, u: torch.Tensor, chunk: int, g: torch.Tensor):
     """(dr, dk, dv, dw, du), each in its input's dtype: the vjp of
@@ -70,10 +109,25 @@ class _WKV6(torch.autograd.Function):
         ctx.chunk = chunk
         y, state = wkv6_fwd(r, k, v, w, u, chunk)
         ctx.mark_non_differentiable(state)
+        ctx.placements = getattr(y, "placements", None)
         return y, state
 
     @staticmethod
     def backward(ctx, g, _g_state):
+        if ctx.placements is not None:
+            # DTensors: the rule runs on the shards the forward ran on; u's
+            # gradient sums over the batch, partial where the batch shards
+            from torch.distributed.tensor import Partial, Replicate, Shard
+            from repro_torch.sharding.dtensor import run_local
+            pl = ctx.placements
+            u_pl = tuple(Shard(0) if p.is_shard(2) else Replicate()
+                         for p in pl)
+            du_pl = tuple(Partial() if p.is_shard(0) else q
+                          for p, q in zip(pl, u_pl))
+            return (*run_local(
+                lambda *t: wkv6_bwd(*t[:5], ctx.chunk, t[5]),
+                (*ctx.saved_tensors, g), (pl,) * 4 + (u_pl, pl),
+                (pl,) * 4 + (du_pl,)), None)
         return (*wkv6_bwd(*ctx.saved_tensors, ctx.chunk, g), None)
 
 

@@ -8,8 +8,10 @@ parameters are stored in ``cfg.param_dtype``. Layouts at every public
 function are the JAX ones — q ``(B, S, H, dh)``, k/v ``(B, T, G, dh)`` — so
 the two packages compare like with like.
 
-The GSPMD helpers have no counterpart: ``with_logical_constraint`` is
-nothing here, and ``cache_update`` is an in-place write.
+``with_logical_constraint`` returns a plain tensor as it is; under
+``sharding.specs.use_rules`` it redistributes a DTensor (the dry run) to the
+rules' placements, where the reference pins GSPMD's layout. ``cache_update``
+is an in-place write.
 """
 from __future__ import annotations
 
@@ -137,6 +139,15 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return rms_ops.rmsnorm(x, scale, eps)
 
 
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows ``table[tokens]``, as ``F.embedding``: the one lookup DTensor
+    shards as a vocab-parallel table (an index of a sharded table would be
+    gathered first)."""
+    out = F.embedding(tokens, gather_weights(table))
+    # a vocab-sharded table's rows arrive as partial sums: settle them
+    return with_logical_constraint(out, ("batch",) + (None,) * (out.ndim - 1))
+
+
 def rope_angles(positions: torch.Tensor, head_dim: int,
                 theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """positions: (...,) int -> (cos, sin) of shape (..., head_dim//2)."""
@@ -190,10 +201,14 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True) -> torch.Tensor:
-    """GQA attention: the flash-attention kernel (K1) on CUDA tensors,
+    """GQA attention: the flash-attention kernel (K1) on CUDA tensors and
+    on DTensors (the dry run models the card's program on any device),
     ``dense_attention`` on CPU tensors. ``cfg.attention_impl`` picks nothing
     here: each device has one attention."""
-    if q.is_cuda:
+    if hasattr(q, "placements"):
+        from repro_torch.sharding.dtensor import repeat_kv_for
+        k, v = repeat_kv_for(q, k, v)
+    if q.is_cuda or hasattr(q, "placements"):
         return fa_ops.flash_attention(q, k, v, causal=causal)
     return dense_attention(q, k, v, causal=causal)
 
@@ -210,7 +225,42 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 def cache_update(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
     """Write ``new`` (B, 1, G, dh) into ``cache`` (B, T, G, dh) at sequence
     position ``pos``, in place (the JAX version returns a new cache)."""
+    if hasattr(cache, "placements"):
+        from repro_torch.sharding.dtensor import cache_update_local
+        return cache_update_local(cache, new, pos)
     cache[:, pos] = new[:, 0].to(cache.dtype)
+
+
+def split_heads_ready(y: torch.Tensor, n: int) -> torch.Tensor:
+    """``y`` (..., n·dh) ready to be viewed as (..., n, dh): a plain tensor
+    as it is, a DTensor through ``sharding.dtensor.heads_ready``."""
+    if not hasattr(y, "placements"):
+        return y
+    from repro_torch.sharding.dtensor import heads_ready
+    return heads_ready(y, n)
+
+
+def gather_weights(tree):
+    """FSDP's all-gather of a layer's weights before they are used: under
+    active rules each DTensor leaf is gathered over the data axes (the
+    reference's GSPMD does so inside the layer scan, and again in the
+    rematerialized backward); a plain tensor or dict is returned as is.
+    Takes a tensor or a dict of them."""
+    leaf = next(iter(tree.values())) if isinstance(tree, dict) else tree
+    if not hasattr(leaf, "placements"):
+        return tree
+    from repro_torch.sharding.dtensor import gather_data_axes
+    return tree_map(gather_data_axes, tree)
+
+
+def with_logical_constraint(x: torch.Tensor, logical_axes) -> torch.Tensor:
+    """The reference's sharding constraint: a DTensor under active rules
+    is redistributed to their placements; anything else is returned as is."""
+    if not hasattr(x, "placements"):
+        return x
+    from repro_torch.sharding.specs import current_rules
+    rules = current_rules()
+    return x if rules is None else rules.constrain(x, logical_axes)
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +274,9 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     The label logit is a ``gather``, where the JAX version sums a one-hot:
     the same function, without a (tokens, V) fp32 one-hot on the card.
     """
+    if hasattr(logits, "placements"):
+        from repro_torch.sharding.dtensor import vocab_parallel_cross_entropy
+        return vocab_parallel_cross_entropy(logits, labels, mask)
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     label_logit = torch.gather(lf, -1, labels.long()[..., None])[..., 0]

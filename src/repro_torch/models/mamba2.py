@@ -41,8 +41,10 @@ import torch.nn.functional as F
 
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (ParamSpec, attention, cache_update,
-                                       decode_attention, layer_slices, remat,
-                                       resolve_device, rms_norm, rope_angles)
+                                       decode_attention, embed_lookup,
+                                       gather_weights, layer_slices, remat,
+                                       resolve_device, rms_norm, rope_angles,
+                                       with_logical_constraint)
 from repro_torch.models.config import ModelConfig
 
 
@@ -116,6 +118,8 @@ def ssd_chunked(x, dt, a_log, Bc, Cc, D_skip, chunk: int, state0=None):
     the state carried from chunk to chunk is a loop, as the reference's
     ``lax.scan`` carries it.
     """
+    if hasattr(x, "placements"):
+        return _ssd_sharded(x, dt, a_log, Bc, Cc, D_skip, chunk, state0)
     B, S, Hs, P = x.shape
     N = Bc.shape[-1]
     xf, dtf, laf = x.float(), dt.float(), a_log.float()
@@ -157,6 +161,40 @@ def ssd_chunked(x, dt, a_log, Bc, Cc, D_skip, chunk: int, state0=None):
     return y.to(x.dtype).contiguous(), state
 
 
+def _ssd_sharded(x, dt, a_log, Bc, Cc, D_skip, chunk, state0):
+    """``ssd_chunked`` of DTensors, on each device's shard: the batch as
+    the data axes split it, the heads over "model" where it divides them
+    (else replicated there). B and C, shared by the heads, and D_skip get
+    partial gradients where their work is split."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.sharding.dtensor import run_local
+    from repro_torch.sharding.specs import axis_names
+    mesh = x.device_mesh
+    Hs = x.shape[2]
+    batch = [p.is_shard(0) for p in x.placements]
+    heads = [not batch[i] and name == "model" and Hs % mesh.size(i) == 0
+             for i, name in enumerate(axis_names(mesh))]
+
+    def pl(on_batch, on_heads, other=Replicate()):
+        return tuple(on_batch if batch[i] else on_heads if heads[i] else other
+                     for i in range(mesh.ndim))
+
+    R = Replicate()
+    ins = [pl(Shard(0), Shard(2)), pl(Shard(0), Shard(2)),
+           pl(Shard(0), Shard(2)), pl(Shard(0), R), pl(Shard(0), R),
+           pl(R, Shard(0))]
+    grads = ins[:3] + [pl(Shard(0), Partial()), pl(Shard(0), Partial()),
+                       pl(Partial(), Shard(0))]
+    args = [x, dt, a_log, Bc, Cc, D_skip]
+    if state0 is not None:
+        args.append(state0)
+        ins.append(pl(Shard(0), Shard(1)))
+        grads.append(ins[-1])
+    return run_local(lambda *t: ssd_chunked(*t[:6], chunk, *t[6:]), args,
+                     ins, (pl(Shard(0), Shard(2)), pl(Shard(0), Shard(1))),
+                     grads)
+
+
 def ssd_step(x, dt, a_log, Bc, Cc, D_skip, state):
     """Single-token SSD recurrence. x: (B,Hs,P); dt/a_log: (B,Hs); Bc/Cc:
     (B,N); state: (B,Hs,N,P). Returns (y in x's dtype, the new state)."""
@@ -186,7 +224,9 @@ def _split_proj(cfg, proj):
 def _causal_conv(seq, w, b):
     """Depthwise causal conv along time. seq: (B, S, Dc); w: (K, Dc)."""
     K, S = w.shape[0], seq.shape[1]
-    pad = F.pad(seq, (0, 0, K - 1, 0))
+    # zeros before the sequence by a concatenation: DTensor's rule for
+    # ``F.pad`` in torch 2.11 gives a one-dim layout on a 2-D mesh
+    pad = torch.cat([torch.zeros_like(seq[:, :1])] * (K - 1) + [seq], dim=1)
     out = sum(pad[:, i:i + S] * w[i][None, None] for i in range(K))
     return out + b[None, None]
 
@@ -201,6 +241,7 @@ def mamba_block(cfg: ModelConfig, lp, h, conv_state=None, ssd_state=None,
     cd = cfg.cdtype
     B, S, _ = h.shape
     Hs, P, N, K = n_ssm_heads(cfg), cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv
+    lp = gather_weights(lp)
     x = rms_norm(h, lp["norm"], cfg.norm_eps)
     proj = x @ lp["in_proj"].to(cd)
     z, xin, Bc, Cc, dt_raw = _split_proj(cfg, proj)
@@ -224,7 +265,11 @@ def mamba_block(cfg: ModelConfig, lp, h, conv_state=None, ssd_state=None,
     a_log = -dt * A[None, None]
     y, new_ssd = ssd_chunked(xs, dt, a_log, Bc, Cc, lp["D_skip"].float(),
                              cfg.ssm_chunk, state0=ssd_state)
-    y = rms_norm(y.view(B, S, Din), lp["out_norm"], cfg.norm_eps) * F.silu(z)
+    # K2 normalizes whole rows: a row sharded over "mlp" is gathered first
+    # (the reference's norm reduces the shards' partial sums instead)
+    y = with_logical_constraint(y.view(B, S, Din), ("batch", None, None))
+    y = with_logical_constraint(rms_norm(y, lp["out_norm"], cfg.norm_eps),
+                                ("batch", None, "mlp")) * F.silu(z)
     out = y @ lp["out_proj"].to(cd)
     if return_state:
         return out, (full[:, -(K - 1):], new_ssd)
@@ -266,24 +311,32 @@ def _rope(cfg: ModelConfig, positions: torch.Tensor):
 def _shared_attn_block(cfg: ModelConfig, sp, h, cos, sin):
     """The shared transformer block over a sequence: (h, k, v); k/v feed
     the invocation's KV cache."""
+    sp = gather_weights(sp)
     x = rms_norm(h, sp["attn_norm"], cfg.norm_eps)
     q, k, v = tfm._qkv(cfg, sp, x, cos, sin)
-    h = h + tfm._attn_out(cfg, sp, attention(q, k, v, causal=True))
+    h = _settle(h + tfm._attn_out(cfg, sp, attention(q, k, v, causal=True)))
     x = rms_norm(h, sp["mlp_norm"], cfg.norm_eps)
-    return h + tfm.dense_ffn(cfg, sp, x), k, v
+    return _settle(h + tfm.dense_ffn(cfg, sp, x)), k, v
 
 
 def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens].to(cfg.cdtype)
+    return embed_lookup(params["embed"], tokens).to(cfg.cdtype)
 
 
 def _unembed(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return h @ params["unembed"].to(cfg.cdtype)
+    return h @ gather_weights(params["unembed"]).to(cfg.cdtype)
+
+
+def _settle(h: torch.Tensor) -> torch.Tensor:
+    """The residual stream's layout between blocks (the reference pins it
+    after each Mamba2 layer and the shared block; the port also after the
+    shared attention, where DTensor would leave partial sums pending)."""
+    return with_logical_constraint(h, ("batch", "seq_res", None))
 
 
 def _mamba_layer(cfg: ModelConfig, lp, h):
-    return h + mamba_block(cfg, lp, h)
+    return _settle(h + mamba_block(cfg, lp, h))
 
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor
@@ -366,7 +419,7 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, state=None):
     cos, sin = _rope(cfg, torch.arange(S, device=h.device))
     for i, lp in enumerate(_mamba_slices(cfg, params)):
         out, (conv_s, ssd_s) = mamba_block(cfg, lp, h, return_state=True)
-        h = h + out
+        h = _settle(h + out)
         state["conv"][i] = conv_s
         state["ssd"][i] = ssd_s
         g = _invocation(cfg, i)
@@ -394,19 +447,20 @@ def decode_step(cfg: ModelConfig, params, state, tokens: torch.Tensor,
         out, (conv_s, ssd_s) = mamba_block(
             cfg, lp, h, conv_state=state["conv"][i],
             ssd_state=state["ssd"][i], return_state=True)
-        h = h + out
+        h = _settle(h + out)
         state["conv"][i] = conv_s
         state["ssd"][i] = ssd_s
         g = _invocation(cfg, i)
         if g is not None:
             # shared attention with this invocation's KV cache
+            sp = gather_weights(sp)
             x = rms_norm(h, sp["attn_norm"], cfg.norm_eps)
             q, k, v = tfm._qkv(cfg, sp, x, cos, sin)
             kc, vc = state["attn_k"][g], state["attn_v"][g]
             cache_update(kc, k, pos)
             cache_update(vc, v, pos)
             out = decode_attention(q[:, 0], kc, vc, pos)[:, None]
-            h = h + tfm._attn_out(cfg, sp, out)
+            h = _settle(h + tfm._attn_out(cfg, sp, out))
             x = rms_norm(h, sp["mlp_norm"], cfg.norm_eps)
-            h = h + tfm.dense_ffn(cfg, sp, x)
+            h = _settle(h + tfm.dense_ffn(cfg, sp, x))
     return _unembed(cfg, params, h)[:, 0], state

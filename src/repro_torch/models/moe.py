@@ -16,8 +16,11 @@ Two dispatch modes (``cfg.moe_dispatch``):
 * ``"einsum"`` — GShard's dense (T, E, cap) dispatch and combine tensors.
 
 ``"local"``, the configs' default, is the reference's expert-data-local
-``shard_map`` dispatch; without a device mesh the reference falls back to
-``"scatter"``, and the port, which has no mesh, always does.
+dispatch (``_moe_ffn_local``): under sharding rules with a "model" axis
+each (data, model) shard routes its own tokens through its own E / TP
+experts with no dispatch collective, and the partial outputs are summed
+over "model". Without such rules (a plain tensor on one device) it falls
+back to ``"scatter"``, as the reference does without a mesh.
 
 Shared (always-on) experts are a plain dense SwiGLU added to the routed
 output. Aux load-balance loss: E * sum_e(f_e * p_e) * ``moe_aux_coef``.
@@ -113,11 +116,98 @@ def _expert_compute(cfg: ModelConfig, p, expert_in: torch.Tensor
     return torch.bmm(swiglu(g, u), p["w_down"].to(cd))
 
 
+def _local_tokens_ffn(cfg: ModelConfig, xt: torch.Tensor, router, wg, wu,
+                      wd, e0: int, E_loc: int):
+    """Route LOCAL tokens xt (T, D) through LOCAL experts [e0, e0 + E_loc)
+    (``wg``/``wu`` (E_loc, D, F), ``wd`` (E_loc, F, D)); returns (the partial
+    output (T, D), the aux loss). Choices of remote experts contribute zero
+    here: their owning model shard computes them, and the caller sums."""
+    cd = cfg.cdtype
+    T, D = xt.shape
+    E = cfg.moe_num_experts
+    probs = router_probs({"router": router}, xt)
+    _p, onehot, gate_idx, gate_vals, pos_in_e, keep, cap = plan(
+        cfg, probs, top_k(probs, cfg.moe_top_k)[1])
+    K = gate_idx.shape[1]
+    keep = keep & (gate_idx >= e0) & (gate_idx < e0 + E_loc)
+    slot = torch.where(keep, (gate_idx - e0) * cap + pos_in_e,
+                       E_loc * cap).reshape(T * K)
+    upd = xt.to(cd)[:, None, :].expand(T, K, D).reshape(T * K, D)
+    buf = torch.zeros((E_loc * cap + 1, D), dtype=cd, device=xt.device)
+    buf = torch.index_add(buf, 0, slot, upd)
+    out = _expert_compute(cfg, {"w_gate": wg, "w_up": wu, "w_down": wd},
+                          buf[:-1].view(E_loc, cap, D))
+    flat_out = torch.cat([out.reshape(E_loc * cap, D),
+                          torch.zeros((1, D), dtype=cd, device=xt.device)])
+    y_tk = flat_out.index_select(0, slot).view(T, K, D)
+    gates = (gate_vals * keep.to(gate_vals.dtype)).to(cd)
+    y = torch.bmm(gates[:, None, :], y_tk).view(T, D)
+    # aux load-balance terms from local tokens (the same on every model shard)
+    frac = onehot.sum(dim=1).mean(dim=0)
+    aux = E * torch.sum(frac * probs.mean(dim=0)) * cfg.moe_aux_coef
+    return y, aux
+
+
+def _moe_ffn_local(cfg: ModelConfig, p, x: torch.Tensor, rules):
+    """Expert-data-local dispatch over DTensors: every (data, model) shard
+    routes its own tokens (replicated over "model") through its own E / TP
+    experts, with no dispatch collective; the routed output leaves as a
+    partial sum over "model" (the caller's layout constraint all-reduces
+    it, the reference's psum) and aux as a mean over all shards. The
+    layer's weights arrive gathered over the data axes (FSDP), so each
+    weight's gradient is partial over them, and over "model" where the
+    shard saw only its own experts' share."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.sharding.specs import axis_names
+    mesh = x.device_mesh
+    names = axis_names(mesh)
+    m = names.index("model")
+    data = [i for i, n in enumerate(names) if n in ("pod", "data")]
+    E = cfg.moe_num_experts
+    E_loc = E // mesh.size(m)
+    cd = cfg.cdtype
+
+    def pl(model, other):
+        return [model if i == m else other(i) for i in range(len(names))]
+
+    rows = pl(Replicate(), lambda i: Shard(0) if i in data else Replicate())
+    x = x.to(cd).redistribute(mesh, rows)
+    x_loc = x.to_local(grad_placements=pl(
+        Partial(), lambda i: Shard(0) if i in data else Replicate()))
+    weights = []
+    for name in ("router", "w_gate", "w_up", "w_down"):
+        w = p[name]
+        model = Replicate() if name == "router" else Shard(0)
+        w = w.redistribute(mesh, pl(model, lambda i: Replicate()))
+        weights.append(w.to_local(grad_placements=pl(
+            Partial() if name == "router" else Shard(0),
+            lambda i: Partial() if i in data else Replicate())))
+    coord = mesh.get_coordinate() or [0] * mesh.ndim
+    B_loc, S, D = x_loc.shape
+    y, aux = _local_tokens_ffn(cfg, x_loc.reshape(B_loc * S, D), *weights,
+                               coord[m] * E_loc, E_loc)
+    y = DTensor.from_local(y.view(B_loc, S, D), mesh, pl(
+        Partial(), lambda i: Shard(0) if i in data else Replicate()),
+        run_check=False, shape=tuple(x.shape),
+        stride=tuple(x.stride()))
+    aux = DTensor.from_local(aux, mesh, [Partial("avg")] * mesh.ndim,
+                             run_check=False)
+    if cfg.moe_num_shared:
+        y = y + swiglu(x @ p["sh_gate"].to(cd),
+                       x @ p["sh_up"].to(cd)) @ p["sh_down"].to(cd)
+    return y, aux
+
+
 def moe_ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor],
             x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y, aux_loss). Router math in fp32."""
     if cfg.moe_dispatch not in ("scatter", "einsum", "local"):
         raise ValueError(f"unknown moe_dispatch {cfg.moe_dispatch!r}")
+    if cfg.moe_dispatch == "local" and hasattr(x, "placements"):
+        from repro_torch.sharding.specs import axis_names, current_rules
+        rules = current_rules()
+        if rules is not None and "model" in axis_names(rules.mesh):
+            return _moe_ffn_local(cfg, p, x, rules)
     B, S, D = x.shape
     E, K = cfg.moe_num_experts, cfg.moe_top_k
     T = B * S
@@ -126,7 +216,7 @@ def moe_ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor],
         _routing(cfg, p, xt)
     cd = cfg.cdtype
 
-    if cfg.moe_dispatch in ("scatter", "local"):  # "local": no mesh here
+    if cfg.moe_dispatch in ("scatter", "local"):  # "local" without a mesh
         slot = gate_idx * cap + pos_in_e                         # (T, K)
         slot = torch.where(keep, slot, E * cap).reshape(T * K)   # drop bucket
         upd = xt.to(cd)[:, None, :].expand(T, K, D).reshape(T * K, D)

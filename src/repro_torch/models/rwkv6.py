@@ -36,8 +36,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.wkv6.ops import wkv6
-from repro_torch.models.common import (ParamSpec, layer_slices, remat,
-                                       rms_norm)
+from repro_torch.models.common import (ParamSpec, embed_lookup,
+                                       gather_weights, layer_slices, remat,
+                                       rms_norm, with_logical_constraint)
 from repro_torch.models.config import ModelConfig
 
 
@@ -178,8 +179,10 @@ def _channel_mix(cfg: ModelConfig, lp, x: torch.Tensor, xx: torch.Tensor):
     dx = xx - x
     x_k = x + dx * lp["cm_mu_k"].to(cd)
     x_r = x + dx * lp["cm_mu_r"].to(cd)
-    kk = torch.square(torch.relu(x_k @ lp["cm_k"].to(cd)))
-    kv = kk @ lp["cm_v"].to(cd)
+    kk = with_logical_constraint(
+        torch.square(torch.relu(x_k @ lp["cm_k"].to(cd))),
+        ("batch", None, "mlp"))
+    kv = with_logical_constraint(kk @ lp["cm_v"].to(cd), ("batch", None, None))
     return torch.sigmoid(x_r @ lp["cm_r"].to(cd)) * kv
 
 
@@ -192,9 +195,17 @@ def channel_mix(cfg: ModelConfig, lp, h: torch.Tensor,
     return out
 
 
+def _settle(h: torch.Tensor) -> torch.Tensor:
+    """The residual stream's layout between blocks (the reference pins it
+    after each layer; the port also after the time mix, where DTensor
+    would leave the heads' partial sums pending)."""
+    return with_logical_constraint(h, ("batch", "seq_res", None))
+
+
 def rwkv_layer(cfg: ModelConfig, lp, h: torch.Tensor) -> torch.Tensor:
-    h = h + time_mix(cfg, lp, h)
-    return h + channel_mix(cfg, lp, h)
+    lp = gather_weights(lp)
+    h = _settle(h + time_mix(cfg, lp, h))
+    return _settle(h + channel_mix(cfg, lp, h))
 
 
 # ---------------------------------------------------------------------------
@@ -202,11 +213,13 @@ def rwkv_layer(cfg: ModelConfig, lp, h: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens].to(cfg.cdtype)
+    return with_logical_constraint(
+        embed_lookup(params["embed"], tokens).to(cfg.cdtype),
+        ("batch", None, None))
 
 
 def _unembed(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
-    return h @ params["unembed"].to(cfg.cdtype)
+    return h @ gather_weights(params["unembed"]).to(cfg.cdtype)
 
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor
@@ -245,10 +258,11 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, state=None):
         state = {k: torch.empty(shape, dtype=dt, device=h.device)
                  for k, (shape, dt) in state_specs(cfg, h.shape[0]).items()}
     for i, lp in enumerate(layer_slices(params, cfg.num_layers)):
+        lp = gather_weights(lp)
         out, (tm_last, wkv_state) = time_mix(cfg, lp, h, return_state=True)
-        h = h + out
+        h = _settle(h + out)
         out, cm_last = channel_mix(cfg, lp, h, return_state=True)
-        h = h + out
+        h = _settle(h + out)
         state["wkv"][i] = wkv_state
         state["tm_shift"][i] = tm_last
         state["cm_shift"][i] = cm_last
@@ -268,17 +282,18 @@ def decode_step(cfg: ModelConfig, params, state, tokens: torch.Tensor,
     h = _embed(cfg, params, tokens[:, None])  # (B, 1, D)
     B, _, D = h.shape
     for i, lp in enumerate(layer_slices(params, cfg.num_layers)):
+        lp = gather_weights(lp)
         # time mix (S = 1, with the carried shift and WKV state)
         x = rms_norm(h, lp["tm_norm"], cfg.norm_eps)
         r, k, v, g, w = _time_mix_proj(cfg, lp, x, state["tm_shift"][i][:, None])
         shp = (B, H, dh)
         y = wkv6_step(r.view(shp), k.view(shp), v.view(shp), w.view(shp),
                       lp["u"], state["wkv"][i])
-        h = h + _time_mix_out(cfg, lp, y.view(B, 1, D), g)
+        h = _settle(h + _time_mix_out(cfg, lp, y.view(B, 1, D), g))
         state["tm_shift"][i] = x[:, -1]
         # channel mix
         x = rms_norm(h, lp["cm_norm"], cfg.norm_eps)
-        h = h + _channel_mix(cfg, lp, x, state["cm_shift"][i][:, None])
+        h = _settle(h + _channel_mix(cfg, lp, x, state["cm_shift"][i][:, None]))
         state["cm_shift"][i] = x[:, -1]
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _unembed(cfg, params, h)[:, 0], state

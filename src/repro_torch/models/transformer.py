@@ -25,8 +25,11 @@ import torch
 
 from repro_torch.models.common import (ParamSpec, apply_rope, attention,
                                        cache_update, decode_attention,
-                                       layer_slices, remat, rms_norm,
-                                       rope_angles, swiglu)
+                                       embed_lookup, gather_weights,
+                                       layer_slices, remat,
+                                       rms_norm, rope_angles,
+                                       split_heads_ready, swiglu,
+                                       with_logical_constraint)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import moe_ffn, moe_param_specs
 
@@ -96,9 +99,9 @@ def _embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor
     if cfg.family == "audio":
         # tokens (B, S, K): the K codebook rows summed in the tables' dtype,
         # then cast
-        return sum(table[tokens[..., k]] for k, table in enumerate(
+        return sum(embed_lookup(table, tokens[..., k]) for k, table in enumerate(
             params["embed"].unbind(0))).to(cfg.cdtype)
-    return params["embed"][tokens].to(cfg.cdtype)
+    return embed_lookup(params["embed"], tokens).to(cfg.cdtype)
 
 
 def _unembed(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
@@ -106,10 +109,10 @@ def _unembed(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
         # K heads, no softcap: (B, S, K, V), the reference's "bsd,kdv->bskv";
         # one product a head over the unbound (D, V) tables, so the table's
         # gradient is stacked contiguous (the optimizer updates in place)
-        return torch.stack([h @ w.to(cfg.cdtype)
-                            for w in params["unembed"].unbind(0)], dim=2)
+        return torch.stack([h @ w.to(cfg.cdtype) for w in gather_weights(
+            params["unembed"]).unbind(0)], dim=2)
     table = params["embed"].t() if cfg.tie_embeddings else params["unembed"]
-    logits = h @ table.to(cfg.cdtype)
+    logits = h @ gather_weights(table).to(cfg.cdtype)
     if cfg.logits_softcap:
         c = cfg.logits_softcap
         logits = torch.tanh(logits / c) * c
@@ -119,7 +122,8 @@ def _unembed(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
 def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B, S, D) x (D, n, dh) -> (B, S, n, dh)."""
     D, n, dh = w.shape
-    return (x @ w.reshape(D, n * dh)).view(*x.shape[:-1], n, dh)
+    y = split_heads_ready(x @ split_heads_ready(w.reshape(D, n * dh), n), n)
+    return y.view(*x.shape[:-1], n, dh)
 
 
 def _qkv(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -133,7 +137,11 @@ def _qkv(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
         v = v + p["bv"].to(cd)
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+    q = with_logical_constraint(apply_rope(q, cos, sin),
+                                ("batch", "seq_sp", "heads", None))
+    k = with_logical_constraint(apply_rope(k, cos, sin),
+                                ("batch", None, "kv", None))
+    return q, k, with_logical_constraint(v, ("batch", None, "kv", None))
 
 
 def _attn_out(cfg: ModelConfig, p, out: torch.Tensor) -> torch.Tensor:
@@ -147,7 +155,8 @@ def dense_ffn(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     cd = cfg.cdtype
     g = x @ p["w_gate"].to(cd)
     u = x @ p["w_up"].to(cd)
-    return swiglu(g, u) @ p["w_down"].to(cd)
+    mid = with_logical_constraint(swiglu(g, u), ("batch", None, "mlp"))
+    return mid @ p["w_down"].to(cd)
 
 
 def _ffn(cfg: ModelConfig, p, x: torch.Tensor):
@@ -160,13 +169,18 @@ def _ffn(cfg: ModelConfig, p, x: torch.Tensor):
 def _layer(cfg: ModelConfig, lp, h: torch.Tensor, cos, sin):
     """One pre-norm residual layer. Returns (h, k, v, aux_loss); k/v feed
     the cache."""
+    lp = gather_weights(lp)
     x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
     q, k, v = _qkv(cfg, lp, x, cos, sin)
     out = attention(q, k, v, causal=True)
-    h = h + _attn_out(cfg, lp, out)
+    # the partial sums of the heads' products settle before the norm (the
+    # reference leaves the choice to GSPMD; DTensor would shard the rows)
+    h = with_logical_constraint(h + _attn_out(cfg, lp, out),
+                                ("batch", "seq_res", None))
     x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
     y, aux = _ffn(cfg, lp, x)
-    return h + y, k, v, aux
+    h = with_logical_constraint(h + y, ("batch", "seq_res", None))
+    return h, k, v, aux
 
 
 def decoder_layer(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
@@ -185,6 +199,7 @@ def _embed_and_rope(cfg, params, tokens, frontend_embeds=None):
     h = _embed_tokens(cfg, params, tokens)
     if frontend_embeds is not None:
         h = torch.cat([frontend_embeds.to(h.dtype), h], dim=1)
+    h = with_logical_constraint(h, ("batch", None, None))
     S = h.shape[1]
     cos, sin = rope_angles(torch.arange(S, device=h.device), cfg.head_dim,
                            cfg.rope_theta)
@@ -253,19 +268,23 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
     position. Returns (logits, cache).
     """
     pos = int(pos)
-    h = _embed_tokens(cfg, params, tokens[:, None])  # (B, 1[, K]) -> (B, 1, D)
+    h = with_logical_constraint(  # (B, 1[, K]) -> (B, 1, D)
+        _embed_tokens(cfg, params, tokens[:, None]), ("batch", None, None))
     cos, sin = rope_angles(torch.full((1,), pos, device=h.device),
                            cfg.head_dim, cfg.rope_theta)
     cos, sin = cos[None], sin[None]  # (1, 1, dh/2)
     for i, lp in enumerate(layer_slices(params, cfg.num_layers)):
+        lp = gather_weights(lp)
         x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(cfg, lp, x, cos, sin)
         kc, vc = cache["k"][i], cache["v"][i]
         cache_update(kc, k, pos)
         cache_update(vc, v, pos)
         out = decode_attention(q[:, 0], kc, vc, pos)[:, None]
-        h = h + _attn_out(cfg, lp, out)
+        h = with_logical_constraint(h + _attn_out(cfg, lp, out),
+                                    ("batch", "seq_res", None))
         x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-        h = h + _ffn(cfg, lp, x)[0]
+        h = with_logical_constraint(h + _ffn(cfg, lp, x)[0],
+                                    ("batch", "seq_res", None))
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _unembed(cfg, params, h)[:, 0], cache

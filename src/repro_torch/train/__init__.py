@@ -11,7 +11,8 @@ _EXPORTS = {
     "init_opt_state": "optimizer", "global_norm": "optimizer",
     "adamw_update": "optimizer", "StepConfig": "step",
     "loss_and_grads": "step", "make_train_step": "step",
-    "make_eval_step": "step",
+    "make_eval_step": "step", "make_prefill_step": "step",
+    "make_decode_step": "step", "input_specs": "step",
 }
 
 __all__ = list(_EXPORTS)

@@ -70,6 +70,10 @@ def init_opt_state(params, state_dtype: str = "float32") -> Dict[str, Any]:
 
 
 def _pieces(t: torch.Tensor):
+    if hasattr(t, "placements"):
+        # a DTensor (the dry run): elementwise over the whole leaf keeps its
+        # layout; a flat view of a sharded leaf would gather it
+        return (t,)
     if not t.is_contiguous():
         raise ValueError("the optimizer updates contiguous tensors in place")
     return t.view(-1).split(PIECE)

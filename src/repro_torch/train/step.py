@@ -1,23 +1,27 @@
 """Step functions (port of ``repro.train.step``): train (microbatched grad
-accumulation) and eval.
+accumulation), prefill, decode and eval, plus the input specs of the dry run.
 
 ``make_train_step`` builds (params, opt_state, batch) -> (params, opt_state,
 metrics):
 
   * batch (GB, S) is cut into ``microbatches`` of GB / n rows; each one's
-    grads are summed into an fp32 accumulator (with one microbatch the grads
-    are only cast to fp32);
+    grads are summed into an accumulator of ``grad_accum_dtype`` (with one
+    microbatch the grads are only cast to fp32);
   * the AdamW update runs once on the accumulated grads, in place.
 
 The step runs where the parameters and the batch lie: on the card every
 RMSNorm, attention and WKV6 forward launches its kernel (K2, K1, K4), and
 their backward is the reference's recompute-and-differentiate rule.
-``input_specs``, the GSPMD dry run's stand-in, waits for the sharding port.
+
+The same step runs over DTensors in the dry run (``launch/dryrun.py``): a
+DTensor batch sharded on its rows gives each device the same share of every
+microbatch, the rows of its own shard (the reference's reshape to
+(n_micro, GB / n_micro) keeps the data axes on the rows the same way).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -30,6 +34,50 @@ from repro_torch.train.optimizer import OptimizerConfig, adamw_update
 @dataclass(frozen=True)
 class StepConfig:
     microbatches: int = 1
+    frontend_prefix: int = 0   # P positions of precomputed embeddings
+    # Gradient accumulation dtype across microbatches: float32 is the
+    # faithful default; bfloat16 halves the accumulator (an accuracy trade)
+    grad_accum_dtype: str = "float32"
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta tensors; the dry run's only "data")
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, global_batch: int, seq_len: int,
+                kind: str, frontend_prefix: int = 0) -> Dict[str, Any]:
+    """Abstract model inputs for (arch x shape): {name: (meta tensor,
+    logical axes)}, the reference's shapes, dtypes and axes."""
+    B, S = global_batch, seq_len
+    out: Dict[str, Any] = {}
+    tok_shape = (B, S, cfg.num_codebooks) if cfg.family == "audio" else (B, S)
+    if kind == "decode":
+        tok_shape = (B, cfg.num_codebooks) if cfg.family == "audio" else (B,)
+    out["tokens"] = (torch.empty(tok_shape, dtype=torch.int32, device="meta"),
+                     ("batch",) + (None,) * (len(tok_shape) - 1))
+    if cfg.frontend != "none" and kind != "decode":
+        P = frontend_prefix or max(16, min(256, S // 8))
+        out["frontend_embeds"] = (
+            torch.empty((B, P, cfg.d_model), dtype=torch.float32,
+                        device="meta"),
+            ("batch", None, None))
+    return out
+
+
+def _microbatch(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Rows [i·GB/n, (i+1)·GB/n) of ``x``; of a DTensor sharded on its rows,
+    the i-th n-th of each device's own rows."""
+    if not hasattr(x, "placements"):
+        rows = x.shape[0] // n
+        return x[i * rows:(i + 1) * rows]
+    from torch.distributed.tensor import DTensor
+    local = x.to_local()
+    rows = local.shape[0] // n
+    shape = (x.shape[0] // n,) + tuple(x.shape[1:])
+    return DTensor.from_local(
+        local[i * rows:(i + 1) * rows], x.device_mesh, x.placements,
+        run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
 
 
 def loss_and_grads(cfg: ModelConfig, params, batch: Dict
@@ -51,23 +99,24 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
     0-d tensors (no host sync). ``params`` and the moments are updated in
     place."""
     n_micro = step_cfg.microbatches
+    acc_dt = getattr(torch, step_cfg.grad_accum_dtype)
 
     def train_step(params, opt_state, batch):
         GB = batch["tokens"].shape[0]
         if GB % n_micro:
             raise ValueError(f"global batch {GB} does not split into "
                              f"{n_micro} microbatches")
-        micro = [{k: v[i * (GB // n_micro):(i + 1) * (GB // n_micro)]
-                  for k, v in batch.items()} for i in range(n_micro)]
+        micro = [{k: _microbatch(v, i, n_micro) for k, v in batch.items()}
+                 for i in range(n_micro)]
 
         if n_micro > 1:
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=acc_dt),
+                             params)
             loss_sum = aux_sum = 0.0
             for mb in micro:
                 loss, metrics, g_mb = loss_and_grads(cfg, params, mb)
                 for acc, g in zip(tree_leaves(grads), tree_leaves(g_mb)):
-                    acc.add_(g)
+                    acc.add_(g.to(acc_dt))
                 del g_mb
                 loss_sum = loss_sum + loss
                 aux_sum = aux_sum + metrics["aux_loss"]
@@ -84,6 +133,24 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
         return params, opt_state, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# Serving steps
+# ---------------------------------------------------------------------------
+
+def make_prefill_step(cfg: ModelConfig):
+    @torch.no_grad()
+    def prefill_step(params, batch, cache=None):
+        return M.prefill(cfg, params, batch, cache)
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig):
+    @torch.no_grad()
+    def decode_step(params, state, tokens, pos):
+        return M.decode_step(cfg, params, state, tokens, pos)
+    return decode_step
 
 
 # ---------------------------------------------------------------------------

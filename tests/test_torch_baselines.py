@@ -574,6 +574,14 @@ def test_roofline_constants_are_the_h100s():
     # granite-8b cut to 8 layers, 4 x 1024 tokens: 6 N D / 989 TFLOP/s
     assert troof.ideal_step_s(2.148e9, 4096) == \
         pytest.approx(6 * 2.148e9 * 4096 / 989e12)
-    for name in ("analyze_record", "load_rows"):
-        with pytest.raises(UnsupportedOperation, match="item 11"):
-            getattr(troof, name)({} if name == "analyze_record" else ".")
+    # the dry-run readers, refused until the port had a dry run, read its
+    # records with these constants (the cases: tests/test_torch_dryrun.py)
+    assert (troof.LINK_BW, troof.HBM_PER_CHIP) == (50e9, 80 * 2**30)
+    row = troof.analyze_record({
+        "arch": "a", "shape": "s", "mesh": "16x16", "status": "ok",
+        "kind": "train", "family": "dense", "params": 1e9,
+        "global_batch": 256, "seq_len": 4096,
+        "hlo": {"flops": 989e12, "bytes_accessed": 3.35e12,
+                "total_collective_bytes": 25e9},
+        "memory": {"peak_per_device_bytes": 2**30}})
+    assert (row.compute_s, row.memory_s, row.collective_s) == (1.0, 1.0, 0.5)

@@ -986,3 +986,56 @@ def test_fused_loop_over_a_mix_puts_the_hosts_tokens_on_the_card(cuda):
     assert rep.losses == _checksums(host)
     assert all(np.array_equal(a, b) for a, b in zip(host, want))
     assert len(host) == steps
+
+
+# ---------------------------------------------------------------------------
+# The kernel forwards as torch.library operators
+# ---------------------------------------------------------------------------
+
+def _op_cases(gen, cuda):
+    """(operator, its arguments, expected FLOPs) at a granite-8b decode
+    step's and prefill's shapes and rwkv6-3b's prefill's."""
+    x = _randn(gen, (8, 4096), torch.bfloat16, cuda)
+    w = _randn(gen, (4096,), torch.float32, cuda)
+    q = _randn(gen, (2, 256, 32, 128), torch.bfloat16, cuda)
+    k = _randn(gen, (2, 256, 8, 128), torch.bfloat16, cuda)
+    qd = _randn(gen, (8, 32, 128), torch.bfloat16, cuda)
+    kc = _randn(gen, (8, 1032, 8, 128), torch.bfloat16, cuda)
+    r, kk, v, wd, u = _wkv_inputs(gen, 2, 128, 40, 64, torch.bfloat16, cuda)
+    ops = torch.ops.repro_torch
+    return [
+        ("rmsnorm", ops.rmsnorm_fwd.default, (x, w, 1e-5), 0),
+        ("flash_attention", ops.flash_attention_fwd.default, (q, k, k, True),
+         4 * 2 * 32 * 256 * 256 * 128),
+        ("decode_attention", ops.decode_attention.default, (qd, kc, kc, 1015),
+         4 * 8 * 32 * 1032 * 128),
+        ("wkv6", ops.wkv6_fwd.default, (r, kk, v, wd, u, 64),
+         4 * 2 * 128 * 40 * 64 * 64),
+    ]
+
+
+def test_each_operator_launches_its_kernel(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for name, op, args, _flops in _op_cases(gen, cuda):
+        kcommon.reset_launches()
+        op(*args)
+        torch.cuda.synchronize()
+        assert kcommon.launches == {k: int(k == name) for k in kcommon.KERNELS}
+
+
+def test_each_operators_fake_and_flops_agree_with_its_launch(cuda):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    for name, op, args, flops in _op_cases(gen, cuda):
+        with FlopCounterMode(display=False) as fc:
+            real = op(*args)
+        assert fc.get_total_flops() == flops, name
+        with FakeTensorMode() as mode:
+            fake = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor)
+                        else a for a in args))
+        real = real if isinstance(real, tuple) else (real,)
+        fake = fake if isinstance(fake, tuple) else (fake,)
+        assert [(t.shape, t.dtype, t.device) for t in fake] == \
+            [(t.shape, t.dtype, t.device) for t in real], name

@@ -265,7 +265,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "repro_torch.configs.llama3_405b",
             "repro_torch.configs.deepseek_67b",
             "repro_torch.models.transformer",
-            "repro_torch.models.model"} <= set(modules)
+            "repro_torch.models.model", "repro_torch.sharding.specs",
+            "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+            "repro_torch.launch.hlo_analysis",
+            "repro_torch.configs.shapes"} <= set(modules)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
