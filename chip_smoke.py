@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only-hybrid            (phases 1-3 and 15)
     python3 chip_smoke.py --only-audio             (phases 1-3 and 16)
     python3 chip_smoke.py --only-dryrun            (phases 1-3 and 18)
+    python3 chip_smoke.py --only-large             (phases 1-3 and 19)
 
 Phases, each of which raises (exit code != 0) on failure:
 
@@ -25,7 +26,16 @@ Phases, each of which raises (exit code != 0) on failure:
    musicgen-medium's head_dim 64, 24 heads over 24, over its 128-frame
    prefix and 1000 frames, timed, each with a one-key control, and at
    qwen1.5-32b's 40 heads over 40; RMSNorm at musicgen-medium's 1536 and
-   qwen1.5-32b's 5120, timed) plus a ragged and a tiny case each:
+   qwen1.5-32b's 5120, timed; at rep 16, K3 at llama3-405b's decode shape,
+   128 heads over 8, and qwen3-moe-235b-a22b's, 64 over 4, timed with a
+   one-key control, and at dh 64 and 112, and K1 at llama3-405b's prefill,
+   timed with a one-key control; RMSNorm at llama3-405b's 16384; K3's
+   partial form over the cache cut into 4 position pieces, the last past
+   cur_index (no launch), combined, against K3 over the whole cache and the
+   plain version at rep 4 and rep 16, with a piece left out as the control;
+   RMSNorm handed each row's mean square against itself without it and the
+   plain version, four times the mean square the control) plus a ragged and
+   a tiny case each:
    max |err| and
    the worst element's share of its limit (one bf16 ulp of the value plus
    1-2% of its output vector's RMS; see KERNEL_RTOL), with a one-key fault that the
@@ -292,6 +302,20 @@ Phases, each of which raises (exit code != 0) on failure:
    step beside the roofline's step time of that 1x1 record, with the
    ``nvidia-smi`` line.
 
+19. Rep 16 and the registry's last configs on the card. (a) llama3-405b
+   (126 layers, d_model 16384, 128 heads over 8 KV heads) and
+   qwen3-moe-235b-a22b (94 layers, 64 heads over 4, 128 experts top-8)
+   served as 4-layer full-width cuts as phase 4 serves granite-8b (the
+   weights drawn leaf by leaf and cast; skipped under ``--skip-serving``):
+   9 RMSNorm + 4 flash-attention launches a prefill, 9 RMSNorm + 4
+   flash-decode a decode step (288, 4 and 124 over the batch); prefill ms,
+   decode ms a step, tokens/s, peak memory, the profile's busy share, and
+   for the MoE each layer's dropped share. (b) The 2-layer cuts of both,
+   of internvl2-76b (after 128 frame embeddings) and of deepseek-67b,
+   kernels vs plain as phase 4's, with the heads control refused at every
+   step. After it every config of the registry has run its kernels on the
+   card against the plain path.
+
 The last lines are the ``nvidia-smi`` name/power-limit line as it prints
 it, one JSON object with every kernel's numbers, and ``{"ok": true,
 "device": {...}}``. A kernel's ``launches`` is its count on the serving path
@@ -300,7 +324,8 @@ rwkv6-3b for WKV6); ``launches_by_path`` gives each path's count, the
 training paths' over their 3 steps, the fused path's over its 53, the
 resume path's over its 11, the failure path's over its steps, the streams
 path's over its 22, phase 13's host path's (none), phase 14's, 15's and
-16's serving and training paths', and phase 17's host path's (none).
+16's serving and training paths', phase 17's host path's (none) and
+phase 19's serving paths'.
 """
 from __future__ import annotations
 
@@ -464,8 +489,17 @@ AUDIO_TRAIN_LAYERS = 48       # all of them
 # phase 18: the dry run's named cells (arch, shape), each on both
 # production meshes, and the seconds a cell's subprocess may take
 DRYRUN_CELLS = (("granite_8b", "train_4k"), ("deepseek_moe_16b", "train_4k"),
-                ("zamba2_7b", "long_500k"), ("llama3_405b", "train_4k"))
+                ("zamba2_7b", "long_500k"), ("llama3_405b", "train_4k"),
+                ("llama3_405b", "decode_32k"))
 DRYRUN_TIMEOUT_S = 400
+# phase 19: rep 16. llama3-405b (3.19 B parameters a layer, 2 x 2.10 B of
+# untied tables) and qwen3-moe-235b-a22b (2.49 B a layer, 2 x 0.62 B) serve
+# as full-width cuts with phase 4's settings: llama3-405b's 4 layers are
+# 34 GB in bf16, beside a transient fp32 FFN leaf of (4, 16384, 53248),
+# 14.0 GB, while it is drawn (8 layers would not fit); internvl2-76b's
+# 2-layer cut reads VLM_PREFIX frame embeddings first, as qwen3-vl's does
+LARGE_SERVE_LAYERS = 4
+VLM_PREFIX = 128
 DRYRUN_OUT = ROOT / "build" / "dryrun"
 # the forward kernels' names as the profiler lists them
 KERNEL_SYMBOLS = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "fa_fwd_kernel",
@@ -681,13 +715,17 @@ def kernel_rmsnorm(torch, F, flush, randn, entries):
                              ("audio decode", BATCH, 1536),
                              ("audio train", TRAIN_GB * (TRAIN_SEQ + AUDIO_PREFIX), 1536),
                              ("qwen prefill", BATCH * PROMPT, 5120),
-                             ("qwen decode", BATCH, 5120)):
+                             ("qwen decode", BATCH, 5120),
+                             ("llama prefill", BATCH * PROMPT, 16384),
+                             ("llama decode", BATCH, 16384)):
         x, w = randn(rows, dim), randn(dim, dtype=torch.float32)
         err, share = check_kernel(torch, f"rmsnorm {label}", rmsnorm(x, w),
                                   rmsnorm_ref(x, w))
         line = f"rmsnorm {label} ({rows}, {dim}): max|err| {err:.3e} ({share:.2f} of limit)"
+        if label in ("hybrid out_norm", "llama decode"):
+            rmsnorm_given_mean_square(torch, flush, x, w, label, entries)
         if label in ("prefill", "decode", "rwkv prefill", "hybrid prefill",
-                     "hybrid out_norm", "audio prefill", "qwen prefill"):
+                     "hybrid out_norm", "audio prefill", "qwen prefill", "llama prefill"):
             ms = time_ms(torch, lambda: rmsnorm_fwd(x, w), flush, 50)
             plain = time_ms(torch, lambda: rmsnorm_ref(x, w), flush, 20)
             wb = w.to(x.dtype)
@@ -720,6 +758,29 @@ def kernel_rmsnorm(torch, F, flush, randn, entries):
         log(line)
 
 
+def rmsnorm_given_mean_square(torch, flush, x, w, label, entries):
+    """K2 handed each row's own mean square (the form a row sharded across
+    devices takes, its sum of squares all-reduced) against K2 without it
+    and the plain version; four times the mean square is the control."""
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_fwd
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    ms = x.float().pow(2).mean(-1)
+    got = rmsnorm_fwd(x, w, 1e-5, ms)
+    err, share = check_kernel(torch, f"rmsnorm {label}, mean square given", got,
+                              rmsnorm_ref(x, w))
+    own, own_share = check_kernel(torch, f"rmsnorm {label}, mean square given, vs K2",
+                                  got, rmsnorm_fwd(x, w))
+    ms_ms = time_ms(torch, lambda: rmsnorm_fwd(x, w, 1e-5, ms), flush, 50)
+    log(f"rmsnorm {label} {tuple(x.shape)} with each row's mean square given: max|err| "
+        f"{err:.3e} ({share:.2f} of limit) vs plain, {own:.3e} ({own_share:.2f}) vs K2 "
+        f"without it; kernel {ms_ms:.4f} ms")
+    check_rejects(torch, f"rmsnorm {label}, four times the mean square given",
+                  rmsnorm_fwd(x, w, 1e-5, 4 * ms), rmsnorm_ref(x, w))
+    entries["rmsnorm"].setdefault("given_mean_square", {})[label.replace(" ", "_")] = dict(
+        max_abs_err=err, max_err_share_of_limit=share, vs_k2_max_abs_err=own, ms=ms_ms)
+
+
 def kernel_flash_attention(torch, F, flush, randn, entries):
     """K1 flash attention at granite-8b's prefill and training shapes,
     deepseek-moe-16b's prefill (rep 1), qwen3-vl-30b-a3b's training
@@ -744,6 +805,8 @@ def kernel_flash_attention(torch, F, flush, randn, entries):
             ("audio train", (TRAIN_GB, TRAIN_SEQ + AUDIO_PREFIX, 24, 24, 64, True)),
             ("audio ragged", (2, 45, 24, 24, 64, True)),
             ("qwen prefill", (BATCH, PROMPT, 40, 40, 128, True)),
+            ("llama prefill", (BATCH, PROMPT, 128, 8, 128, True)),
+            ("rep16 ragged", (2, 45, 16, 1, 64, True)),
             ("ragged", (2, 45, 4, 2, 128, True)),
             ("full", (2, 100, 6, 3, 64, False)),
             ("tiny", (1, 5, 2, 1, 64, True))):
@@ -753,7 +816,8 @@ def kernel_flash_attention(torch, F, flush, randn, entries):
                                   flash_attention_ref(q, k, v, causal))
         line = (f"flash_attention {label} q{(B, S, H, dh)} kv{(B, S, G, dh)}: "
                 f"max|err| {err:.3e} ({share:.2f} of limit)")
-        if label in ("prefill", "moe prefill", "hybrid prefill", "audio prefill"):
+        if label in ("prefill", "moe prefill", "hybrid prefill", "audio prefill",
+                     "llama prefill"):
             ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal), flush, 20)
             plain = time_ms(torch, lambda: flash_attention_ref(q, k, v, causal), flush, 5)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -781,7 +845,7 @@ def kernel_flash_attention(torch, F, flush, randn, entries):
                     f"{key}_bound_ms": b_ms, f"{key}_bound_by": b_by,
                     f"{key}_max_abs_err": err, f"{key}_max_err_share_of_limit": share})
         log(line)
-        if label in ("prefill", "hybrid prefill", "audio prefill"):
+        if label in ("prefill", "hybrid prefill", "audio prefill", "llama prefill"):
             # one key's value lost: only the last row sees it
             v_bad = v.clone()
             v_bad[:, -1] = 0
@@ -812,6 +876,11 @@ def kernel_decode_attention(torch, F, flush, randn, entries):
             ("audio tail", (BATCH, 24, 24, 64, AUDIO_PREFIX + MAX_SEQ,
                             AUDIO_PREFIX + MAX_SEQ - 1)),
             ("qwen decode", (BATCH, 40, 40, 128, MAX_SEQ, cur_main)),
+            ("llama decode", (BATCH, 128, 8, 128, MAX_SEQ, cur_main)),
+            ("llama tail", (BATCH, 128, 8, 128, MAX_SEQ, MAX_SEQ - 1)),
+            ("qwen3moe decode", (BATCH, 64, 4, 128, MAX_SEQ, cur_main)),
+            ("rep16 dh64", (3, 32, 2, 64, 300, 299)),
+            ("rep16 dh112", (3, 32, 2, 112, 300, 150)),
             ("ragged", (3, 6, 3, 64, 100, 70)),
             ("tiny", (1, 8, 1, 64, 5, 0))):
         q, kc, vc = randn(B, H, dh), randn(B, T, G, dh), randn(B, T, G, dh)
@@ -820,7 +889,8 @@ def kernel_decode_attention(torch, F, flush, randn, entries):
                                   decode_attention_ref(q, kc, vc, cur))
         line = (f"decode_attention {label} q{(B, H, dh)} cache{(B, T, G, dh)} cur {cur}: "
                 f"max|err| {err:.3e} ({share:.2f} of limit)")
-        if label in ("decode", "moe decode", "hybrid decode", "audio decode"):
+        if label in ("decode", "moe decode", "hybrid decode", "audio decode",
+                     "llama decode", "qwen3moe decode"):
             ms = time_ms(torch, lambda: decode_attention(q, kc, vc, cur), flush, 50)
             plain = time_ms(torch, lambda: decode_attention_ref(q, kc, vc, cur), flush, 20)
             qs = q[:, :, None]
@@ -849,11 +919,57 @@ def kernel_decode_attention(torch, F, flush, randn, entries):
                     f"{key}_bound_ms": b_ms, f"{key}_bound_by": b_by,
                     f"{key}_max_abs_err": err, f"{key}_max_err_share_of_limit": share})
         log(line)
-        if label in ("decode", "hybrid decode", "audio decode"):
+        if label in ("decode", "hybrid decode", "audio decode", "llama decode",
+                     "qwen3moe decode"):
             # the newest key left out of the kernel's range
             check_rejects(torch, f"decode_attention {label}, newest key dropped",
                           decode_attention(q, kc, vc, cur - 1),
                           decode_attention_ref(q, kc, vc, cur))
+        if label in ("decode", "llama decode"):
+            decode_partial_check(torch, label, q, kc, vc, cur, entries)
+
+
+def decode_partial_check(torch, label, q, kc, vc, cur, entries):
+    """K3's partial form over the cache cut into 4 position pieces (the last
+    past ``cur``: n_valid 0, no launch), combined as the sharded decode
+    combines them (``combine_partials``), against K3 over the whole cache
+    and the plain version. Each piece's output is rounded to bf16 before the
+    combine, so the limit takes two ulps of the value. The control leaves
+    the second piece out of the combine."""
+    from repro_torch.kernels import common as kcommon
+    from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                          decode_attention_partial)
+    from repro_torch.kernels.decode_attention.ref import (combine_partials,
+                                                          decode_attention_ref)
+
+    T = kc.shape[1]
+    bounds = [0, T // 4, T // 2, cur + 5, T]
+    outs, lses = [], []
+    before = kcommon.launches["decode_attention"]
+    for a, b in zip(bounds, bounds[1:]):
+        kp, vp = kc[:, a:b].contiguous(), vc[:, a:b].contiguous()
+        o, lse = decode_attention_partial(q, kp, vp, min(max(cur + 1 - a, 0), b - a))
+        outs.append(o)
+        lses.append(lse)
+    launched = kcommon.launches["decode_attention"] - before
+    if launched != 3 or not bool(torch.isneginf(lses[-1]).all()) or bool(outs[-1].any()):
+        raise AssertionError(f"decode_attention partial {label}: {launched} launches for "
+                             f"3 non-empty pieces, or the empty piece not (0, -inf)")
+    got = combine_partials(outs, lses)
+    tol = dict(rtol=2 * KERNEL_RTOL)
+    err, share = check_kernel(torch, f"decode_attention partial {label} vs plain", got,
+                              decode_attention_ref(q, kc, vc, cur), **tol)
+    werr, wshare = check_kernel(torch, f"decode_attention partial {label} vs whole", got,
+                                decode_attention(q, kc, vc, cur), **tol)
+    H, G = q.shape[1], kc.shape[2]
+    log(f"decode_attention partial form, rep {H // G}, pieces {bounds}, cur {cur} (one empty): "
+        f"combined vs plain max|err| {err:.3e} ({share:.2f} of limit), vs whole-cache K3 "
+        f"{werr:.3e} ({wshare:.2f})")
+    check_rejects(torch, f"decode_attention partial {label}, second piece left out",
+                  combine_partials(outs[:1] + outs[2:], lses[:1] + lses[2:]),
+                  decode_attention_ref(q, kc, vc, cur), **tol)
+    entries["decode_attention"][f"partial_rep{H // G}_max_abs_err"] = err
+    entries["decode_attention"][f"partial_rep{H // G}_max_err_share_of_limit"] = share
 
 
 def kernel_wkv6(torch, F, flush, randn, entries):
@@ -3086,7 +3202,16 @@ def main() -> int:
                     help="run phases 1-3 and 16 only")
     ap.add_argument("--only-dryrun", action="store_true",
                     help="run phases 1-3 and 18 only")
+    ap.add_argument("--only-large", action="store_true",
+                    help="run phases 1-3 and 19 only")
     args = ap.parse_args()
+    # the phases an --only-* flag picks (none: every phase)
+    chosen = {p for flag, p in (("moe", 14), ("hybrid", 15), ("audio", 16), ("dryrun", 18),
+                                ("large", 19)) if getattr(args, f"only_{flag}")}
+
+    def runs(phase):
+        return not chosen or phase in chosen
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3150,8 +3275,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     paths = {}  # path -> its launches
-    only = args.only_moe or args.only_hybrid or args.only_audio or args.only_dryrun
-    if not (args.skip_serving or only):
+    if not (args.skip_serving or chosen):
         # -- 4. granite-8b at full width, its profile and its 2-layer cut -----------------
         engine, paths["granite-8b"] = phase_serve(torch, kcommon, get_config("granite_8b"))
         phase_profile(torch, "granite-8b", engine.cfg, engine.params)
@@ -3169,37 +3293,41 @@ def main() -> int:
         free()
         done(5)
 
-    if not only:
+    if not chosen:
         phases_6_to_13(torch, kcommon, paths, smi, free, done)
     # -- 14. the MoE family and the vision prefix -------------------------------------------
-    if not (args.only_hybrid or args.only_audio or args.only_dryrun):
+    if runs(14):
         phase_moe(torch, kcommon, paths, args.skip_serving, free, done)
 
     # -- 15. the Mamba2 / Zamba2 hybrid ------------------------------------------------------
-    if not (args.only_moe or args.only_audio or args.only_dryrun):
+    if runs(15):
         phase_hybrid(torch, kcommon, paths, args.skip_serving, free, done)
 
     # -- 16. the audio family, and qwen1.5-32b's QKV bias -----------------------------------
-    if not (args.only_moe or args.only_hybrid or args.only_dryrun):
+    if runs(16):
         phase_audio(torch, kcommon, paths, args.skip_serving, free, done)
 
     # -- 17. the data-plane examples (host code) ------------------------------------------
-    if not only:
+    if not chosen:
         kcommon.reset_launches()
         phase_examples(smi)
         paths["examples (host)"] = dict(kcommon.launches)
         done(17)
 
     # -- 18. the dry run and the card check of its counts ------------------------------------
-    if not (args.only_moe or args.only_hybrid or args.only_audio):
+    if runs(18):
         phase_dryrun(smi)
         phase_card_check(torch, kcommon, paths, smi, free)
         done(18)
 
+    # -- 19. rep 16: the largest configs served as full-width cuts; the last four cut -------
+    if runs(19):
+        phase_large(torch, kcommon, paths, args.skip_serving, free, done, smi)
+
     # launches: each kernel's count on the serving path it was ported for
     # (granite-8b for K1-K3, rwkv6-3b for K4; their training paths with
-    # --skip-serving, the MoE, hybrid or audio paths with --only-moe,
-    # --only-hybrid or --only-audio), and each path's count beside it
+    # --skip-serving, the chosen phase's first path with an --only-* flag),
+    # and each path's count beside it
     for kname, e in entries.items():
         path = "rwkv6-3b" if kname == "wkv6" else "granite-8b"
         e["launches_path"] = next(p for p in (path, f"{path} train", f"{path} card check",
@@ -3237,6 +3365,50 @@ def phase_moe(torch, kcommon, paths, skip_serving, free, done):
                          control_k1_without_mask, prefix=VL_PREFIX)
     free()
     done(14)
+
+
+def phase_large(torch, kcommon, paths, skip_serving, free, done, smi):
+    """Phase 19: (a) llama3-405b and qwen3-moe-235b-a22b (rep 16) served as
+    LARGE_SERVE_LAYERS-layer full-width cuts through ``ServeEngine`` (unless
+    ``skip_serving``), with their profiles and, for the MoE, each layer's
+    dropped share; (b) their 2-layer cuts, internvl2-76b's after
+    VLM_PREFIX frame embeddings and deepseek-67b's, kernels vs plain with
+    the heads control. Adds the serving paths' launches to ``paths``."""
+    import functools
+
+    from repro_torch.configs.registry import get_config
+
+    rolled = ("each head's K1 and K3 output moved onto the next head",
+              functools.partial(control_heads_rolled, "transformer"))
+    for arch in ("llama3_405b", "qwen3_moe_235b_a22b"):
+        cfg = get_config(arch)
+        if skip_serving:
+            cut = cfg.replace(num_layers=2)
+            params = serving_weights(torch, cut)
+        else:  # (a) the full-width cut through the engine, its profile
+            cut = cfg.replace(num_layers=LARGE_SERVE_LAYERS)
+            log(f"{cfg.name}: {cfg.num_heads} heads of {cfg.head_dim} over "
+                f"{cfg.num_kv_heads} KV heads (rep {cfg.num_heads // cfg.num_kv_heads}), cut "
+                f"to {LARGE_SERVE_LAYERS} of {cfg.num_layers} layers at full width  [{smi}]")
+            engine, paths[cfg.name] = phase_serve(torch, kcommon, cut)
+            params = engine.params
+            del engine
+            if cfg.family == "moe":
+                phase_drops(torch, cut, params)
+            phase_profile(torch, cfg.name, cut, params)
+        # (b) its 2-layer cut, kernels vs plain
+        phase_kernel_vs_plain(torch, cfg.name, cut, params, control=rolled)
+        del params
+        free()
+    for arch, prefix in (("internvl2_76b", VLM_PREFIX), ("deepseek_67b", 0)):
+        cut = get_config(arch).replace(num_layers=2)
+        log(f"{cut.name} 2-layer cut: d_model {cut.d_model}, {cut.num_heads} heads of "
+            f"{cut.head_dim} over {cut.num_kv_heads}, {cut.param_count() / 1e9:.3f} B params"
+            + (f", after {prefix} frame embeddings" if prefix else ""))
+        phase_kernel_vs_plain(torch, cut.name, cut, serving_weights(torch, cut),
+                              control=rolled, prefix=prefix)
+        free()
+    done(19)
 
 
 def phase_dryrun(smi):

@@ -2,9 +2,14 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/decode_attention/kernel.py
 // (_dec_kernel / decode_attention_fwd). One query token per sequence,
-// q (B, H, dh), attends a (B, T, G, dh) KV cache at positions [0, cur_index];
+// q (B, H, dh), attends a (B, T, G, dh) KV cache at positions [0, n_valid);
 // each kv head g serves query heads g*rep .. g*rep + rep - 1 (rep = H / G), so
 // the cache is read once at its native G heads, never repeated.
+//
+// Two forms, one kernel: the whole-cache decode writes the normalised
+// output; the partial form (a position shard of a cache, combined across
+// devices by all-reduces, sharding/dtensor.py) also writes each head's
+// log-sum-exp (natural log, fp32) from the same merge.
 //
 // Bound: memory. The valid part of the cache is read once and each byte
 // feeds ~rep multiply-adds, far below the card's flop/byte balance; at the
@@ -20,16 +25,23 @@
 //   into a kStages ring, K and V on separate mbarriers, so V's copy is in
 //   flight while the scores of the same tile are computed; a stage is
 //   refilled once the block has finished with it.
+// - Head groups: a warp group (128 threads) holds at most kGroupRep = 8
+//   query heads in registers (q and the accumulator, 8 dims of each a
+//   thread). rep 16 runs two warp groups over the same ring: each stage is
+//   loaded once from HBM and read from shared memory by both, so the cache
+//   is still read once per kv head. Any multiple of 8 would follow.
 // - Math: 16-byte shared loads per thread (dh/8 lanes per key, shuffle
-//   reduced) for the scores of the rep heads; an online softmax across the
-//   CTA's tiles (m, l per head in shared memory, the accumulator rescaled);
-//   P V with each thread owning 8 dims of every head for a share of the keys.
+//   reduced) for the scores of the group's heads; an online softmax across
+//   the CTA's tiles (m, l per head in shared memory, the accumulator
+//   rescaled); P V with each thread owning 8 dims of its group's heads for a
+//   share of the keys.
 // - Merge: each CTA leaves (m, l, o) for its rep heads in shared memory; after
 //   a cluster barrier the CTAs read one another's through distributed shared
 //   memory (map_shared_rank) and each writes a share of the output with the
-//   weights 2^(m_rank - max m). No fp32 partials go through device memory
-//   and there is no second kernel.
-// cur_index arrives as a host int, so no CTA is launched past it and the
+//   weights 2^(m_rank - max m), and, in the partial form, ln 2 (max m +
+//   log2 sum_c w_c l_c) for each head. No fp32 partials go through device
+//   memory and there is no second kernel.
+// n_valid arrives as a host int, so no CTA is launched past it and the
 // ragged tail of the last tile is masked: T need not divide any tile.
 // Head dim 112 (zamba2-7b's shared block) runs the dh-128 kernel: the TMA
 // box is 128 columns wide over the 112-wide cache, and the unit zero-fills
@@ -39,8 +51,12 @@
 // power-of-two shuffles.
 // At the serving shape: 64 clusters of 8 CTAs, each CTA 4 tiles of 32 keys,
 // 32 KB of ring at dh 128; 4-5 CTAs per SM, so all 512 are resident at once.
-// ptxas (CUDA 12.9, sm_90a): 95 registers at rep 4 (40 / 64 / 167 at rep 1 /
-// 2 / 8, dh 128), no spills.
+// ptxas (CUDA 12.9, sm_90a), dh 128: 48 / 64 / 96 / 168 registers at rep 1 /
+// 2 / 4 / 8, and 168 at rep 16 (169 at dh 112, 168 at dh 64), no spills.
+// At rep 16 a CTA is 256 threads of 168 registers: one CTA an SM, so
+// llama3-405b's 512 CTAs run in about four waves (3.1x SDPA's time on the
+// card; PERF.md). q.K^T of one tile is then a 16 x 32 x dh product, an
+// mma.sync.m16n8k16 shape: the tensor-core step for a later speed PR.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -59,9 +75,19 @@ using namespace hopper;
 constexpr int kTile = 32;        // keys per copy stage; equals TILE in decode_attention/ops.py
 constexpr int kMaxCluster = 8;   // CTAs per (b, g); equals MAX_CLUSTER in decode_attention/ops.py
 constexpr int kStages = 2;
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+constexpr int kGroupThreads = 128;  // one warp group
+constexpr int kGroupWarps = kGroupThreads / 32;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Query heads a warp group holds, warp groups a CTA, and threads a CTA.
+template <int REP>
+struct Heads {
+    static constexpr int kGroupRep = REP < 8 ? REP : 8;
+    static constexpr int kGroups = REP / kGroupRep;
+    static constexpr int kThreads = kGroupThreads * kGroups;
+    static_assert(kGroups * kGroupRep == REP, "rep is at most 8 or a multiple of 8");
+};
 
 typedef __nv_bfloat16 bf16;
 
@@ -79,8 +105,8 @@ struct Layout {
     static constexpr int kAlpha = kL + REP * 4;                   // float [REP]
     static constexpr int kBar = (kAlpha + REP * 4 + 7) / 8 * 8;   // k_full[], v_full[]
     static constexpr int kBytes = kBar + 16 * kStages + 128;  // + alignment slack
-    // the end-of-block reduction over warps reuses the ring
-    static_assert(kWarps * REP * D * 4 <= kRing, "reduction fits the ring");
+    // the end-of-block reduction over a group's warps reuses the ring
+    static_assert(kGroupWarps * REP * D * 4 <= kRing, "reduction fits the ring");
 };
 
 __device__ __forceinline__ void unpack8(const uint4& raw, float (&f)[8]) {
@@ -95,14 +121,18 @@ __device__ __forceinline__ void unpack8(const uint4& raw, float (&f)[8]) {
 
 // D is the width the ring and the lanes are laid out at, DV <= D the head
 // dim of q, the caches and the output.
+// lse, if not null, receives each head's natural log-sum-exp (fp32).
 template <int D, int DV, int REP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Heads<REP>::kThreads)
 decode_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map,
-              const bf16* __restrict__ q, bf16* __restrict__ out, int H, int G, int n_valid,
-              int n_tiles, float scale_log2) {
+              const bf16* __restrict__ q, bf16* __restrict__ out, float* __restrict__ lse, int H,
+              int G, int n_valid, int n_tiles, float scale_log2) {
     using L = Layout<D, REP>;
-    constexpr int kLanesPerKey = D / 8;                    // 16-byte chunks per key row
-    constexpr int kKeysPerPass = kThreads / kLanesPerKey;  // keys a block touches at once
+    constexpr int kThreads = Heads<REP>::kThreads;
+    constexpr int kWarps = kThreads / 32;
+    constexpr int kGR = Heads<REP>::kGroupRep;                 // heads of this thread's group
+    constexpr int kLanesPerKey = D / 8;                        // 16-byte chunks per key row
+    constexpr int kKeysPerPass = kGroupThreads / kLanesPerKey; // keys a group touches at once
     static_assert(kTile % kKeysPerPass == 0 && kLanesPerKey <= 32, "even trip counts");
     static_assert(DV <= D && DV % 8 == 0, "whole 16-byte chunks of a head");
     extern __shared__ uint8_t smem_raw[];
@@ -122,7 +152,9 @@ decode_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__
     const int t_begin = rank * n_tiles / n_rank;
     const int my_tiles = (rank + 1) * n_tiles / n_rank - t_begin;  // >= 1: cluster <= n_tiles
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-    const int chunk = tid % kLanesPerKey, slot = tid / kLanesPerKey;
+    const int grp = tid / kGroupThreads, gtid = tid % kGroupThreads;
+    const int r0 = grp * kGR;  // the group's first head of the rep
+    const int chunk = gtid % kLanesPerKey, slot = gtid / kLanesPerKey;
     const int c0 = chunk * 8;
 
     if (tid == 0) {
@@ -150,20 +182,21 @@ decode_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__
     if (tid == 0)
         for (int i = 0; i < min(kStages, my_tiles); ++i) load_tile(i);
 
-    // This thread's 8 dims of the REP query heads, scaled into the log2
+    // This thread's 8 dims of its group's query heads, scaled into the log2
     // domain (zeros past DV).
-    float qr[REP][8];
+    float qr[kGR][8];
 #pragma unroll
-    for (int r = 0; r < REP; ++r) {
+    for (int r = 0; r < kGR; ++r) {
         uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-        if (c0 < DV) raw = *reinterpret_cast<const uint4*>(q + ((size_t)b * H + g * REP + r) * DV + c0);
+        if (c0 < DV)
+            raw = *reinterpret_cast<const uint4*>(q + ((size_t)b * H + g * REP + r0 + r) * DV + c0);
         unpack8(raw, qr[r]);
 #pragma unroll
         for (int j = 0; j < 8; ++j) qr[r][j] *= scale_log2;
     }
-    float acc[REP][8];
+    float acc[kGR][8];
 #pragma unroll
-    for (int r = 0; r < REP; ++r)
+    for (int r = 0; r < kGR; ++r)
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
 
@@ -184,14 +217,14 @@ decode_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__
             float kf[8];
             unpack8(raw, kf);
 #pragma unroll
-            for (int r = 0; r < REP; ++r) {
+            for (int r = 0; r < kGR; ++r) {
                 float p = 0.f;
 #pragma unroll
                 for (int j = 0; j < 8; ++j) p += qr[r][j] * kf[j];
 #pragma unroll
                 for (int off = kLanesPerKey / 2; off > 0; off >>= 1)
                     p += __shfl_xor_sync(0xffffffffu, p, off);
-                if (chunk == 0) sc[r * kTile + kk] = valid ? p : -INFINITY;
+                if (chunk == 0) sc[(r0 + r) * kTile + kk] = valid ? p : -INFINITY;
             }
         }
         __syncthreads();
@@ -224,8 +257,8 @@ decode_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__
         // 3. Rescale, then accumulate P V over the tile's valid keys.
         mbar_wait(v_full(s), parity);
 #pragma unroll
-        for (int r = 0; r < REP; ++r) {
-            const float a = alpha_s[r];
+        for (int r = 0; r < kGR; ++r) {
+            const float a = alpha_s[r0 + r];
 #pragma unroll
             for (int j = 0; j < 8; ++j) acc[r][j] *= a;
         }
@@ -233,8 +266,8 @@ decode_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__
             float vf[8];
             unpack8(*reinterpret_cast<const uint4*>(vs + kk * D + c0), vf);
 #pragma unroll
-            for (int r = 0; r < REP; ++r) {
-                const float p = sc[r * kTile + kk];
+            for (int r = 0; r < kGR; ++r) {
+                const float p = sc[(r0 + r) * kTile + kk];
 #pragma unroll
                 for (int j = 0; j < 8; ++j) acc[r][j] += p * vf[j];
             }
@@ -247,30 +280,33 @@ decode_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__
     }
 
     // This CTA's un-normalised o: sum over the key slots, first within each
-    // warp (shuffles), then across warps through the (now idle) ring.
+    // warp (shuffles), then across the group's warps through the (now idle)
+    // ring; each group fills its own heads' rows.
 #pragma unroll
     for (int off = kLanesPerKey; off < 32; off <<= 1)
 #pragma unroll
-        for (int r = 0; r < REP; ++r)
+        for (int r = 0; r < kGR; ++r)
 #pragma unroll
             for (int j = 0; j < 8; ++j) acc[r][j] += __shfl_xor_sync(0xffffffffu, acc[r][j], off);
-    float* red = reinterpret_cast<float*>(smem);  // [kWarps][REP][D]
+    float* red = reinterpret_cast<float*>(smem);  // [kGroupWarps][REP][D]
     if (lane < kLanesPerKey) {
+        const int gw = warp % kGroupWarps;
 #pragma unroll
-        for (int r = 0; r < REP; ++r)
+        for (int r = 0; r < kGR; ++r)
 #pragma unroll
-            for (int j = 0; j < 8; ++j) red[(warp * REP + r) * D + c0 + j] = acc[r][j];
+            for (int j = 0; j < 8; ++j) red[(gw * REP + r0 + r) * D + c0 + j] = acc[r][j];
     }
     __syncthreads();
     for (int e = tid; e < REP * D; e += kThreads) {
         float sum = 0.f;
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) sum += red[w * REP * D + e];
+        for (int w = 0; w < kGroupWarps; ++w) sum += red[w * REP * D + e];
         part_o[e] = sum;
     }
 
     // Merge the cluster's (m, l, o): out = sum_c w_c o_c / sum_c w_c l_c,
-    // w_c = 2^(m_c - max m). Each CTA writes every n_rank-th share.
+    // w_c = 2^(m_c - max m). Each CTA writes every n_rank-th share; the
+    // partial form's lse of head r goes with element (r, 0).
     cluster.sync();
     for (int e = rank * kThreads + tid; e < REP * D; e += n_rank * kThreads) {
         const int r = e / D, d = e % D;
@@ -284,13 +320,14 @@ decode_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__
             num += w * *cluster.map_shared_rank(part_o + e, c);
         }
         out[((size_t)b * H + g * REP + r) * DV + d] = __float2bfloat16(num / den);
+        if (lse != nullptr && d == 0) lse[(size_t)b * H + g * REP + r] = (mx + log2f(den)) * kLn2;
     }
     cluster.sync();  // no CTA leaves while another still reads its shared memory
 }
 
 template <int D, int DV, int REP>
-int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int T, int H, int G,
-           int n_valid, int n_tiles, int cluster, float scale_log2, cudaStream_t st) {
+int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int B, int T, int H,
+           int G, int n_valid, int n_tiles, int cluster, float scale_log2, cudaStream_t st) {
     CUtensorMap k_map, v_map;
     if (!make_map(&k_map, k, B, T, G, DV, D, kTile, CU_TENSOR_MAP_SWIZZLE_NONE) ||
         !make_map(&v_map, v, B, T, G, DV, D, kTile, CU_TENSOR_MAP_SWIZZLE_NONE))
@@ -306,54 +343,64 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int T, i
     attr[0].val.clusterDim.z = 1;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(cluster, G, B);
-    cfg.blockDim = dim3(kThreads);
+    cfg.blockDim = dim3(Heads<REP>::kThreads);
     cfg.dynamicSmemBytes = bytes;
     cfg.stream = st;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, decode_kernel<D, DV, REP>, k_map, v_map, q, o, H, G, n_valid,
-                             n_tiles, scale_log2);
+    err = cudaLaunchKernelEx(&cfg, decode_kernel<D, DV, REP>, k_map, v_map, q, o, lse, H, G,
+                             n_valid, n_tiles, scale_log2);
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, int DV>
-int launch_rep(int rep, const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int T, int H,
-               int G, int n_valid, int n_tiles, int cluster, float scale_log2, cudaStream_t st) {
+int launch_rep(int rep, const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int B,
+               int T, int H, int G, int n_valid, int n_tiles, int cluster, float scale_log2,
+               cudaStream_t st) {
+#define DECODE_REP(R) \
+    case R: return launch<D, DV, R>(q, k, v, o, lse, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
     switch (rep) {
-        case 1: return launch<D, DV, 1>(q, k, v, o, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
-        case 2: return launch<D, DV, 2>(q, k, v, o, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
-        case 4: return launch<D, DV, 4>(q, k, v, o, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
-        case 8: return launch<D, DV, 8>(q, k, v, o, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
+        DECODE_REP(1)
+        DECODE_REP(2)
+        DECODE_REP(4)
+        DECODE_REP(8)
+        DECODE_REP(16)
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
+#undef DECODE_REP
 }
 
 }  // namespace
 
-// q: (B, H, dh) bf16; k/v: (B, T, G, dh) bf16; o: (B, H, dh) bf16; positions
-// [0, n_valid) are attended, cut into n_tiles = ceil(n_valid / kTile) tiles
-// shared by `cluster` CTAs per (b, g), 1 <= cluster <= min(kMaxCluster,
-// n_tiles). dh in {64, 112, 128}, H / G in {1, 2, 4, 8} (the Python wrapper
-// checks and plans).
-extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                                    int T, int H, int G, int dh, int n_valid, int n_tiles,
-                                    int cluster, float scale, void* stream) {
+// q: (B, H, dh) bf16; k/v: (B, T, G, dh) bf16; o: (B, H, dh) bf16; lse: null,
+// or (B, H) fp32 for the partial form; positions [0, n_valid) are attended,
+// 1 <= n_valid <= T, cut into n_tiles = ceil(n_valid / kTile) tiles shared
+// by `cluster` CTAs per (b, g), 1 <= cluster <= min(kMaxCluster, n_tiles).
+// dh in {64, 112, 128}, H / G in {1, 2, 4, 8, 16} (the Python wrapper checks
+// and plans).
+extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                    void* lse, int B, int T, int H, int G, int dh, int n_valid,
+                                    int n_tiles, int cluster, float scale, void* stream) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const bf16* qp = static_cast<const bf16*>(q);
     const bf16* kp = static_cast<const bf16*>(k);
     const bf16* vp = static_cast<const bf16*>(v);
     bf16* op = static_cast<bf16*>(o);
-    if (cluster < 1 || cluster > kMaxCluster || cluster > n_tiles ||
+    float* lp = static_cast<float*>(lse);
+    if (cluster < 1 || cluster > kMaxCluster || cluster > n_tiles || n_valid < 1 || n_valid > T ||
         (long long)n_tiles * kTile < n_valid || (long long)(n_tiles - 1) * kTile >= n_valid)
         return static_cast<int>(cudaErrorInvalidValue);
     const float scale_log2 = scale * kLog2e;
     const int rep = H / G;
     if (dh == 128)
-        return launch_rep<128, 128>(rep, qp, kp, vp, op, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
+        return launch_rep<128, 128>(rep, qp, kp, vp, op, lp, B, T, H, G, n_valid, n_tiles, cluster,
+                                    scale_log2, st);
     if (dh == 112)
-        return launch_rep<128, 112>(rep, qp, kp, vp, op, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
+        return launch_rep<128, 112>(rep, qp, kp, vp, op, lp, B, T, H, G, n_valid, n_tiles, cluster,
+                                    scale_log2, st);
     if (dh == 64)
-        return launch_rep<64, 64>(rep, qp, kp, vp, op, B, T, H, G, n_valid, n_tiles, cluster, scale_log2, st);
+        return launch_rep<64, 64>(rep, qp, kp, vp, op, lp, B, T, H, G, n_valid, n_tiles, cluster,
+                                  scale_log2, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,6 +3,10 @@
 // Replaces the Pallas TPU kernel repro/kernels/rmsnorm/kernel.py
 // (_rms_kernel / rmsnorm_fwd). Per row of an (N, D) view:
 //   y = x * rsqrt(mean(x^2) + eps) * scale      (fp32 math, output in bf16)
+// With `mean_sq` (N fp32 values) given, the row's mean(x^2) is taken from
+// it and the row reduction is skipped: a row sharded across devices is
+// normalised by each device on its own columns with the whole row's mean
+// square, all-reduced beforehand (sharding/dtensor.py).
 //
 // Bound: memory. Each element is read once and written once (2 bytes each in
 // bf16) and costs three flops, far below the card's ~295 flop/byte balance
@@ -29,9 +33,10 @@
 // warp x 10 vectors per lane (slot count 12), D 4096 one warp x 16, D 5120
 // two warps x 10 (12), D 8192 two warps x 16, D 16384 four warps x 16; at a
 // decode step's 8 rows, 16 warps a row. ptxas (sm_90a, nvcc 12.9), no spills
-// in any of the 30 instantiations: 16 slots 94-96 registers, 12 slots 78-80,
-// 8 slots 56-57, 4 slots 40, 2 slots 34-40, 1 slot 32; 16-64 B of static
-// shared memory where a row takes several warps.
+// in any of the 30 instantiations: 16 slots 94-98 registers, 12 slots 79-80,
+// 8 slots 56-63, 4 slots 40-47, 2 slots 34-39, 1 slot 32 (with the given
+// mean-square branch); 16-64 B of static shared memory where a row takes
+// several warps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,7 +74,8 @@ __device__ __forceinline__ void load_slab(uint4 (&v)[kVecs], const uint4* xr, in
 template <int kVecs, int kWarps>
 __global__ void __launch_bounds__(threads_for(kWarps))
 rmsnorm_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
-               bf16* __restrict__ out, int rows, int dim, float eps) {
+               const float* __restrict__ mean_sq, bf16* __restrict__ out, int rows, int dim,
+               float eps) {
     constexpr int kRowsPerBlock = threads_for(kWarps) / (kWarps * 32);
     constexpr int kSlab = kVecs * kWarps * 32;  // vectors a group holds at once
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -82,35 +88,42 @@ rmsnorm_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
     uint4* orow = reinterpret_cast<uint4*>(out + (size_t)row * dim);
 
     uint4 v[kVecs];
-    float ss = 0.f;
-    for (int slab = 0; slab < nslab; ++slab) {
-        load_slab<kVecs, kWarps>(v, xr, slab, first, nvec, live);
-        float part[kVecs];  // sums of squares, added pairwise (as a tree, not a chain)
+    float ms;  // the row's mean square
+    if (mean_sq != nullptr) {  // given: load the row, no reduction
+        load_slab<kVecs, kWarps>(v, xr, nslab - 1, first, nvec, live);
+        ms = live ? mean_sq[row] : 0.f;
+    } else {  // uniform over the grid, so every thread reaches the barrier
+        float ss = 0.f;
+        for (int slab = 0; slab < nslab; ++slab) {
+            load_slab<kVecs, kWarps>(v, xr, slab, first, nvec, live);
+            float part[kVecs];  // sums of squares, added pairwise (as a tree, not a chain)
 #pragma unroll
-        for (int s = 0; s < kVecs; ++s) {
-            const bf16* e = reinterpret_cast<const bf16*>(&v[s]);
-            float sq[kVec];
+            for (int s = 0; s < kVecs; ++s) {
+                const bf16* e = reinterpret_cast<const bf16*>(&v[s]);
+                float sq[kVec];
 #pragma unroll
-            for (int j = 0; j < kVec; ++j) sq[j] = __bfloat162float(e[j]) * __bfloat162float(e[j]);
-            part[s] = ((sq[0] + sq[1]) + (sq[2] + sq[3])) + ((sq[4] + sq[5]) + (sq[6] + sq[7]));
+                for (int j = 0; j < kVec; ++j) sq[j] = __bfloat162float(e[j]) * __bfloat162float(e[j]);
+                part[s] = ((sq[0] + sq[1]) + (sq[2] + sq[3])) + ((sq[4] + sq[5]) + (sq[6] + sq[7]));
+            }
+#pragma unroll
+            for (int w = 1; w < kVecs; w *= 2)
+#pragma unroll
+                for (int s = 0; s + w < kVecs; s += 2 * w) part[s] += part[s + w];
+            ss += part[0];
         }
+        ss = warp_sum(ss);
+        if constexpr (kWarps > 1) {
+            __shared__ float partial[kRowsPerBlock][kWarps];
+            if (lane == 0) partial[warp / kWarps][warp % kWarps] = ss;
+            __syncthreads();
+            ss = 0.f;
 #pragma unroll
-        for (int w = 1; w < kVecs; w *= 2)
-#pragma unroll
-            for (int s = 0; s + w < kVecs; s += 2 * w) part[s] += part[s + w];
-        ss += part[0];
-    }
-    ss = warp_sum(ss);
-    if constexpr (kWarps > 1) {
-        __shared__ float partial[kRowsPerBlock][kWarps];
-        if (lane == 0) partial[warp / kWarps][warp % kWarps] = ss;
-        __syncthreads();
-        ss = 0.f;
-#pragma unroll
-        for (int g = 0; g < kWarps; ++g) ss += partial[warp / kWarps][g];
+            for (int g = 0; g < kWarps; ++g) ss += partial[warp / kWarps][g];
+        }
+        ms = ss / (float)dim;
     }
     if (!live) return;
-    const float r = rsqrtf(ss / (float)dim + eps);
+    const float r = rsqrtf(ms + eps);
 
     const float4* sc = reinterpret_cast<const float4*>(scale);
     // the last slab is still in registers; a row of one slab is read once
@@ -134,27 +147,27 @@ rmsnorm_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
 }
 
 template <int kVecs, int kWarps>
-int launch(const void* x, const void* scale, void* out, int rows, int dim, float eps,
-           cudaStream_t st) {
+int launch(const void* x, const void* scale, const void* mean_sq, void* out, int rows, int dim,
+           float eps, cudaStream_t st) {
     constexpr int kRowsPerBlock = threads_for(kWarps) / (kWarps * 32);
     const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
     rmsnorm_kernel<kVecs, kWarps><<<blocks, threads_for(kWarps), 0, st>>>(
         static_cast<const bf16*>(x), static_cast<const float*>(scale),
-        static_cast<bf16*>(out), rows, dim, eps);
+        static_cast<const float*>(mean_sq), static_cast<bf16*>(out), rows, dim, eps);
     return static_cast<int>(cudaGetLastError());
 }
 
 // Slots per lane rounded up to 1, 2, 4, 8, 12 or 16.
 template <int kWarps>
-int launch_warps(const void* x, const void* scale, void* out, int rows, int dim,
+int launch_warps(const void* x, const void* scale, const void* ms, void* out, int rows, int dim,
                  float eps, cudaStream_t st) {
     const int per_lane = (dim / kVec + kWarps * 32 - 1) / (kWarps * 32);
-    if (per_lane <= 1) return launch<1, kWarps>(x, scale, out, rows, dim, eps, st);
-    if (per_lane <= 2) return launch<2, kWarps>(x, scale, out, rows, dim, eps, st);
-    if (per_lane <= 4) return launch<4, kWarps>(x, scale, out, rows, dim, eps, st);
-    if (per_lane <= 8) return launch<8, kWarps>(x, scale, out, rows, dim, eps, st);
-    if (per_lane <= 12) return launch<12, kWarps>(x, scale, out, rows, dim, eps, st);
-    return launch<16, kWarps>(x, scale, out, rows, dim, eps, st);
+    if (per_lane <= 1) return launch<1, kWarps>(x, scale, ms, out, rows, dim, eps, st);
+    if (per_lane <= 2) return launch<2, kWarps>(x, scale, ms, out, rows, dim, eps, st);
+    if (per_lane <= 4) return launch<4, kWarps>(x, scale, ms, out, rows, dim, eps, st);
+    if (per_lane <= 8) return launch<8, kWarps>(x, scale, ms, out, rows, dim, eps, st);
+    if (per_lane <= 12) return launch<12, kWarps>(x, scale, ms, out, rows, dim, eps, st);
+    return launch<16, kWarps>(x, scale, ms, out, rows, dim, eps, st);
 }
 
 constexpr int kSpreadWarps = 1024;  // ~8 warps an SM on 132 SMs
@@ -162,9 +175,10 @@ constexpr int kSpreadWarps = 1024;  // ~8 warps an SM on 132 SMs
 }  // namespace
 
 // x/out: (rows, dim) bf16, dim a multiple of 8, 16-byte aligned; scale: (dim,)
-// fp32, 16-byte aligned (the Python wrapper checks).
-extern "C" int rmsnorm_fwd(const void* x, const void* scale, void* out, int rows,
-                           int dim, float eps, void* stream) {
+// fp32, 16-byte aligned; mean_sq: null, or (rows,) fp32, each row's mean
+// square (the Python wrapper checks).
+extern "C" int rmsnorm_fwd(const void* x, const void* scale, const void* mean_sq, void* out,
+                           int rows, int dim, float eps, void* stream) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int nvec = dim / kVec;
     // the fewest warps per row (a power of two, at most 16: 512 threads keep
@@ -176,10 +190,10 @@ extern "C" int rmsnorm_fwd(const void* x, const void* scale, void* out, int rows
     while (warps < 16 && nvec > 16 * 32 * warps) warps *= 2;
     while (warps < 16 && rows * warps < kSpreadWarps && nvec > 32 * warps) warps *= 2;
     switch (warps) {
-        case 1: return launch_warps<1>(x, scale, out, rows, dim, eps, st);
-        case 2: return launch_warps<2>(x, scale, out, rows, dim, eps, st);
-        case 4: return launch_warps<4>(x, scale, out, rows, dim, eps, st);
-        case 8: return launch_warps<8>(x, scale, out, rows, dim, eps, st);
-        default: return launch_warps<16>(x, scale, out, rows, dim, eps, st);
+        case 1: return launch_warps<1>(x, scale, mean_sq, out, rows, dim, eps, st);
+        case 2: return launch_warps<2>(x, scale, mean_sq, out, rows, dim, eps, st);
+        case 4: return launch_warps<4>(x, scale, mean_sq, out, rows, dim, eps, st);
+        case 8: return launch_warps<8>(x, scale, mean_sq, out, rows, dim, eps, st);
+        default: return launch_warps<16>(x, scale, mean_sq, out, rows, dim, eps, st);
     }
 }

@@ -51,6 +51,9 @@ _COLLECTIVES = {
     "all_reduce": "all-reduce",
     "all_reduce_coalesced": "all-reduce",
     "all_to_all_single": "all-to-all",
+    # DTensor's Shard(i) -> Shard(j) on a CUDA mesh (a CPU mesh takes an
+    # all-gather and a chunk instead)
+    "shard_dim_alltoall": "all-to-all",
 }
 #: allocations without traffic, and the wait that completes a collective
 _NO_BYTES = {"empty", "empty_like", "empty_strided", "new_empty",

@@ -218,7 +218,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """Single-token attention against a KV cache (kernel K3 on CUDA).
 
     q: (B, H, dh); caches: (B, T, G, dh); cur_index: host int (tokens valid
-    in [0, cur_index])."""
+    in [0, cur_index]). A DTensor cache sharded on its positions takes the
+    reference's flash-decode (``sharding.dtensor.flash_decode``: K3's
+    partial form on each shard, combined by all-reduces)."""
+    if hasattr(k_cache, "placements") and any(
+            p.is_shard(1) for p in k_cache.placements):
+        from repro_torch.sharding.dtensor import flash_decode
+        return flash_decode(q, k_cache, v_cache, cur_index)
     return decode_ops.decode_attention(q, k_cache, v_cache, cur_index)
 
 

@@ -265,11 +265,9 @@ def mamba_block(cfg: ModelConfig, lp, h, conv_state=None, ssd_state=None,
     a_log = -dt * A[None, None]
     y, new_ssd = ssd_chunked(xs, dt, a_log, Bc, Cc, lp["D_skip"].float(),
                              cfg.ssm_chunk, state0=ssd_state)
-    # K2 normalizes whole rows: a row sharded over "mlp" is gathered first
-    # (the reference's norm reduces the shards' partial sums instead)
-    y = with_logical_constraint(y.view(B, S, Din), ("batch", None, None))
-    y = with_logical_constraint(rms_norm(y, lp["out_norm"], cfg.norm_eps),
-                                ("batch", None, "mlp")) * F.silu(z)
+    # a row sharded over "mlp" stays sharded: K2 takes its all-reduced mean
+    # square, as the reference's norm reduces the shards' partial sums
+    y = rms_norm(y.view(B, S, Din), lp["out_norm"], cfg.norm_eps) * F.silu(z)
     out = y @ lp["out_proj"].to(cd)
     if return_state:
         return out, (full[:, -(K - 1):], new_ssd)

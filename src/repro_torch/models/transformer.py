@@ -119,10 +119,19 @@ def _unembed(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B, S, D) x (D, n, dh) -> (B, S, n, dh)."""
+def _proj_heads(x: torch.Tensor, w: torch.Tensor,
+                kv: bool = False) -> torch.Tensor:
+    """(B, S, D) x (D, n, dh) -> (B, S, n, dh). ``kv``: a K/V projection,
+    which on a DTensor whose KV heads a mesh dim cannot split is computed
+    whole on each device of that dim, as the reference computes it."""
     D, n, dh = w.shape
-    y = split_heads_ready(x @ split_heads_ready(w.reshape(D, n * dh), n), n)
+    w = w.reshape(D, n * dh)
+    if kv and hasattr(x, "placements"):
+        from repro_torch.sharding.dtensor import (splits_heads,
+                                                  whole_heads_product)
+        if splits_heads(x, n):
+            return whole_heads_product(x, w, n).view(*x.shape[:-1], n, dh)
+    y = split_heads_ready(x @ split_heads_ready(w, n), n)
     return y.view(*x.shape[:-1], n, dh)
 
 
@@ -131,8 +140,8 @@ def _qkv(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     """Normed input -> (q, k, v) with RoPE applied to q and k."""
     cd = cfg.cdtype
     q = _proj_heads(x, p["wq"].to(cd))
-    k = _proj_heads(x, p["wk"].to(cd))
-    v = _proj_heads(x, p["wv"].to(cd))
+    k = _proj_heads(x, p["wk"].to(cd), kv=True)
+    v = _proj_heads(x, p["wv"].to(cd), kv=True)
     if cfg.qkv_bias:
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)

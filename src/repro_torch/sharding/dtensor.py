@@ -7,9 +7,15 @@ computes.
   gradient settles partial sums;
 - ``gather_data_axes``: FSDP's gather of a weight over the data axes;
 - ``heads_ready`` and ``repeat_kv``: a head dim a mesh dim cannot split;
+- ``whole_heads_product``: a K/V projection whose heads a mesh dim cannot
+  split, computed whole on each device as the reference computes it;
 - ``vocab_parallel_cross_entropy``: the loss over vocab-sharded logits;
 - ``cache_update_local``: a decode step's write into a position-sharded
   cache;
+- ``flash_decode``: K3 over a position-sharded cache, the shards combined
+  by all-reduces (the reference's flash-decode);
+- ``rms_norm_sharded_rows``: K2 on rows sharded across devices, their sum
+  of squares all-reduced;
 - ``run_local``: a kernel's backward rule, or the SSD scan, on each
   device's shard.
 
@@ -20,7 +26,7 @@ from __future__ import annotations
 
 import torch
 import torch.distributed._functional_collectives as funcol
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.sharding.specs import axis_names, current_rules
 
@@ -59,16 +65,136 @@ def gather_data_axes(w):
         w.device_mesh, pl)
 
 
+def position_start(cache) -> int:
+    """This device's first position of a DTensor cache (B, T, G, dh) whose
+    positions (dim 1) may be sharded: DTensor's shards are ``torch.chunk``'s,
+    nested in mesh-dim order."""
+    mesh = cache.device_mesh
+    coord = mesh.get_coordinate() or [0] * mesh.ndim
+    start, size = 0, cache.shape[1]
+    for d, p in enumerate(cache.placements):
+        if p.is_shard(1):
+            step = -(-size // mesh.size(d))
+            start += min(coord[d] * step, size)
+            size = max(0, min(step, size - coord[d] * step))
+    return start
+
+
 def cache_update_local(cache, new, pos: int) -> None:
     """``cache[:, pos] = new[:, 0]`` on a DTensor cache (B, T, G, dh) whose
-    positions may be sharded: each device writes its own shard at
-    ``pos mod T_local``, the write the shard holding ``pos`` makes (the
-    dry run charges every device the owner's costs)."""
+    positions may be sharded: the device whose shard holds ``pos`` writes
+    it there, the others write nothing. On fake tensors (the dry run, which
+    charges every device the owner's costs) each device writes its own
+    shard at ``pos mod T_local``."""
+    from torch._subclasses.fake_tensor import FakeTensor
     pl = tuple(Shard(p.dim - 1) if p.is_shard() and p.dim > 1 else
                Replicate() if p.is_shard(1) else p for p in cache.placements)
     row = new[:, 0].to(cache.dtype).redistribute(cache.device_mesh, pl)
     local = cache.to_local()
-    local[:, pos % local.shape[1]] = row.to_local()
+    at = pos - position_start(cache)
+    if isinstance(local, FakeTensor):
+        at %= local.shape[1]
+    if 0 <= at < local.shape[1]:
+        local[:, at] = row.to_local()
+
+
+def flash_decode(q, k_cache, v_cache, cur_index: int):
+    """Single-token attention of ``q`` (B, H, dh) over DTensor caches (B, T,
+    G, dh) whose positions are sharded: the reference's flash-decode
+    (``repro.models.common.decode_attention``, whose softmax over sharded
+    positions XLA lowers to all-reduces). The cache never moves: each device
+    runs K3's partial form on its own positions, ``[0, n_valid)`` with
+    ``n_valid = clamp(cur_index + 1 - start, 0, T_local)``, and three
+    all-reduces over the position mesh dims combine the shards: the max of
+    the log-sum-exps, the sum of ``w = exp(lse - max)`` and the sum of
+    ``w·o``. q follows the cache's batch and head layout and is gathered
+    over the position dims (a few MB, the reference's trade). Serving only,
+    no gradient. Returns (B, H, dh) in q's dtype, replicated over the
+    position dims."""
+    from repro_torch.kernels.decode_attention.ops import \
+        decode_attention_partial
+    mesh = k_cache.device_mesh
+    kpl = tuple(k_cache.placements)
+    seq = [i for i, p in enumerate(kpl) if p.is_shard(1)]
+    qpl = tuple(Shard(0) if p.is_shard(0) else Shard(1) if p.is_shard(2)
+                else Replicate() for p in kpl)
+    start = position_start(k_cache)
+
+    def local(ql, kl, vl):
+        n_valid = min(max(cur_index + 1 - start, 0), kl.shape[1])
+        o, lse = decode_attention_partial(ql, kl, vl, n_valid)
+        m = lse
+        for d in seq:
+            m = funcol.all_reduce(m, "max", (mesh, d))
+        w = torch.exp(lse - funcol.wait_tensor(m))
+        num, den = w[..., None] * o.float(), w
+        for d in seq:
+            num = funcol.all_reduce(num, "sum", (mesh, d))
+            den = funcol.all_reduce(den, "sum", (mesh, d))
+        num, den = funcol.wait_tensor(num), funcol.wait_tensor(den)
+        return ((num / den[..., None]).to(ql.dtype),)
+
+    return run_local(local, (q, k_cache, v_cache), (qpl, kpl, kpl),
+                     (qpl,))[0]
+
+
+def rms_norm_sharded_rows(x, scale, eps: float, fwd):
+    """``fwd`` (K2's forward, ``kernels/rmsnorm/ops.rmsnorm_fwd``) on a
+    DTensor ``x`` whose rows (last dim) are sharded: each device's sum of
+    squares over its columns, all-reduced over those mesh dims ((B·S) fp32
+    a device), gives each row's mean square, and K2 normalises the local
+    columns with it. The reference's ``rms_norm`` reduces the same partial
+    sums; nothing gathers the rows. ``scale`` follows the row's layout."""
+    mesh = x.device_mesh
+    last = x.ndim - 1
+    xpl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    dims = [i for i, p in enumerate(xpl) if p.is_shard(last)]
+    spl = tuple(Shard(0) if i in dims else Replicate()
+                for i in range(mesh.ndim))
+    width = x.shape[-1]
+
+    def local(xl, sl):
+        ss = xl.float().pow(2).sum(-1)
+        for d in dims:
+            ss = funcol.all_reduce(ss, "sum", (mesh, d))
+        return (fwd(xl, sl, eps, funcol.wait_tensor(ss) / width),)
+
+    return run_local(local, (x, scale), (xpl, spl), (xpl,))[0]
+
+
+def whole_heads_product(x, w, n: int):
+    """``x @ w`` for a head projection ``w`` (D, n·dh) whose n heads a mesh
+    dim that ``x`` does not shard cannot split (a GQA K/V projection, KV
+    heads fewer than "model"): computed whole on every device of that dim,
+    as the reference computes it (its "kv" axis maps to no mesh axis there),
+    with no collective and the redundant FLOPs. ``x`` keeps its batch or
+    sequence sharding; ``w``'s columns stay sharded only over a dim that
+    divides n and shards nothing of ``x``. The gradients are partial where
+    the other operand's shard splits the work."""
+    mesh = x.device_mesh
+    last = x.ndim - 1
+    xpl = tuple(Replicate() if p.is_partial() or p.is_shard(last) else p
+                for p in x.placements)
+    wpl = tuple(Shard(1) if p.is_shard(1) and n % mesh.size(i) == 0
+                and not xpl[i].is_shard() else Replicate()
+                for i, p in enumerate(w.placements))
+    ypl = tuple(xp if xp.is_shard() else Shard(last) if wp.is_shard()
+                else Replicate() for xp, wp in zip(xpl, wpl))
+    grads = (tuple(Partial() if wp.is_shard() else xp
+                   for xp, wp in zip(xpl, wpl)),
+             tuple(Partial() if xp.is_shard() else wp
+                   for xp, wp in zip(xpl, wpl)))
+    return run_local(lambda a, b: (a @ b,), (x, w), (xpl, wpl), (ypl,),
+                     grads)[0]
+
+
+def splits_heads(x, n: int) -> bool:
+    """True if a mesh dim that shards nothing of the DTensor ``x`` does not
+    divide ``n`` heads (a product's output would be sharded there and
+    gathered back into whole heads)."""
+    mesh = x.device_mesh
+    return any(n % mesh.size(i) and not p.is_shard()
+               for i, p in enumerate(x.placements))
 
 
 class _AllReduceSum:

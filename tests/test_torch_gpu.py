@@ -33,12 +33,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import common as kcommon  # noqa: E402
-from repro_torch.kernels.decode_attention.ops import (TILE,  # noqa: E402
-                                                      decode_attention)
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
+from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
+    TILE, decode_attention, decode_attention_partial)
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    combine_partials, decode_attention_partial_ref, decode_attention_ref)
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
-from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
+from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_fwd  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.wkv6.ops import wkv6  # noqa: E402
 from repro_torch.kernels.wkv6.ref import wkv6_chunked  # noqa: E402
@@ -152,6 +153,11 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape):
     (8, 1128, 1128, 24, 24, 64, True),
     (4, 1152, 1152, 24, 24, 64, True),
     (2, 45, 45, 24, 24, 64, True),
+    # rep 16: llama3-405b's serving prefill (128 heads over 8), and small
+    # ragged ones at dh 64 and 112
+    (8, 1000, 1000, 128, 8, 128, True),
+    (2, 45, 45, 16, 1, 64, True),
+    (1, 200, 333, 32, 2, 112, False),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, S, T, H, G, dh, causal):
     gen = torch.Generator(device=cuda).manual_seed(1)
@@ -193,6 +199,16 @@ def test_flash_attention_kernel_matches_plain(cuda, B, S, T, H, G, dh, causal):
     (8, 24, 24, 64, 1160, 1128),
     (8, 24, 24, 64, 1160, 1159),
     (3, 24, 24, 64, 100, 70),
+    # rep 16, two warp groups over one ring: llama3-405b's decode (128
+    # heads over 8), qwen3-moe-235b-a22b's (64 over 4), at dh 64, 112 and
+    # 128, ragged tails, one key, a long cache
+    (8, 128, 8, 128, 1032, 1015),
+    (8, 64, 4, 128, 1032, 1031),
+    (2, 32, 2, 64, 300, 299),
+    (3, 16, 1, 64, 100, 70),
+    (2, 32, 2, 112, 300, 150),
+    (1, 16, 1, 112, 5, 0),
+    (1, 16, 1, 128, 8192, 8191),
 ])
 def test_decode_attention_kernel_matches_plain(cuda, B, H, G, dh, T, cur):
     gen = torch.Generator(device=cuda).manual_seed(2)
@@ -201,6 +217,74 @@ def test_decode_attention_kernel_matches_plain(cuda, B, H, G, dh, T, cur):
     vc = _randn(gen, (B, T, G, dh), torch.bfloat16, cuda)
     _assert_kernel_close(decode_attention(q, kc, vc, cur),
                          decode_attention_ref(q, kc, vc, cur), c=1e-2)
+
+
+@pytest.mark.parametrize("B,H,G,dh,T,cur,cuts", [
+    (8, 128, 8, 128, 1032, 1015, (258, 516, 1020)),  # rep 16, one piece past cur
+    (8, 32, 8, 128, 1032, 1015, (258, 516, 1020)),   # rep 4
+    (2, 64, 4, 64, 300, 120, (100, 130, 200)),       # rep 16 at dh 64, two empty
+    (2, 32, 2, 112, 300, 299, (1, 150)),             # dh 112, a one-key piece
+])
+def test_decode_attention_partial_pieces_combined_match_whole_and_plain(
+        cuda, B, H, G, dh, T, cur, cuts):
+    """K3's partial form over position pieces (an empty one launches
+    nothing), combined, against K3 over the whole cache and the plain
+    version; each piece's lse against the plain partial's."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q = _randn(gen, (B, H, dh), torch.bfloat16, cuda)
+    kc = _randn(gen, (B, T, G, dh), torch.bfloat16, cuda)
+    vc = _randn(gen, (B, T, G, dh), torch.bfloat16, cuda)
+    bounds = [0, *cuts, T]
+    outs, lses, launched = [], [], 0
+    kcommon.reset_launches()
+    for a, b in zip(bounds, bounds[1:]):
+        n_valid = min(max(cur + 1 - a, 0), b - a)
+        kp, vp = kc[:, a:b].contiguous(), vc[:, a:b].contiguous()
+        o, lse = decode_attention_partial(q, kp, vp, n_valid)
+        po, plse = decode_attention_partial_ref(q, kp, vp, n_valid)
+        launched += n_valid > 0
+        if n_valid:
+            _assert_kernel_close(o, po, c=1e-2)
+            torch.testing.assert_close(lse, plse, atol=1e-3, rtol=1e-5)
+        else:
+            assert bool((o == 0).all()) and bool(torch.isneginf(lse).all())
+        outs.append(o)
+        lses.append(lse)
+    torch.cuda.synchronize()
+    assert kcommon.launches["decode_attention"] == launched
+    got = combine_partials(outs, lses)
+    # each piece's output is rounded to bf16 before the combine: 2 ulps
+    _assert_kernel_close(got, decode_attention(q, kc, vc, cur), c=1e-2,
+                         rtol=2 * KERNEL_RTOL)
+    _assert_kernel_close(got, decode_attention_ref(q, kc, vc, cur), c=1e-2,
+                         rtol=2 * KERNEL_RTOL)
+
+
+@pytest.mark.parametrize("shape", [(8000, 7168), (8, 16384), (1001, 448),
+                                   (3, 70000)])
+def test_rmsnorm_with_a_given_mean_square_matches_plain(cuda, shape):
+    """K2 handed each row's own mean square (the sharded-row form) against
+    K2 without it and the plain version; four times the mean square must
+    be refused."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    x = _randn(gen, shape, torch.bfloat16, cuda)
+    w = _randn(gen, (shape[-1],), torch.float32, cuda)
+    ms = x.float().pow(2).mean(-1)
+    got = rmsnorm_fwd(x, w, 1e-5, ms)
+    _assert_kernel_close(got, rmsnorm_ref(x, w), c=1e-2)
+    _assert_kernel_close(got, rmsnorm(x, w), c=1e-2)
+    assert _worst_share(rmsnorm_fwd(x, w, 1e-5, 4 * ms), rmsnorm_ref(x, w),
+                        KERNEL_RTOL, 1e-2)[0] > 1.0
+
+
+def test_decode_attention_refuses_a_rep_outside_reps(cuda):
+    for H, G in ((12, 1), (6, 2), (32, 1)):   # rep 12, 3, 32: no config has them
+        q = torch.zeros(1, H, 64, dtype=torch.bfloat16, device=cuda)
+        kc = torch.zeros(1, 64, G, 64, dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="H/G"):
+            decode_attention(q, kc, kc, 10)
+        with pytest.raises(ValueError, match="H/G"):
+            decode_attention_partial(q, kc, kc, 10)
 
 
 def _wkv_inputs(gen, B, S, H, dh, dtype, device, decay="model"):
@@ -1009,6 +1093,11 @@ def _op_cases(gen, cuda):
          4 * 2 * 32 * 256 * 256 * 128),
         ("decode_attention", ops.decode_attention.default, (qd, kc, kc, 1015),
          4 * 8 * 32 * 1032 * 128),
+        ("decode_attention", ops.decode_attention_partial.default,
+         (qd, kc[:, :500].contiguous(), kc[:, :500].contiguous(), 300),
+         4 * 8 * 32 * 500 * 128),
+        ("rmsnorm", ops.rmsnorm_fwd.default,
+         (x, w, 1e-5, x.float().pow(2).mean(-1)), 0),
         ("wkv6", ops.wkv6_fwd.default, (r, kk, v, wd, u, 64),
          4 * 2 * 128 * 40 * 64 * 64),
     ]

@@ -95,6 +95,8 @@ def test_flash_attention_ragged_matches_ref(B, S, T, H, G, dh, causal, dtype):
     (2, 8, 2, 64, 256, 100),
     (1, 4, 4, 128, 512, 511),
     (3, 6, 3, 32, 128, 64),
+    (2, 16, 1, 64, 256, 200),    # rep 16 (llama3-405b, qwen3-moe-235b-a22b)
+    (1, 32, 2, 128, 256, 255),
 ])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_decode_attention_plain_matches_pallas_and_ref(B, H, G, dh, T, cur,
