@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py            (from the repository root, one CUDA card)
     python3 chip_smoke.py --kernels rmsnorm,wkv6   (phases 1-3 for those only)
+    python3 chip_smoke.py --kernels decode_attention,flash_attention \
+        --tree build/parent --save FILE          (a parent's kernels, this harness)
+    python3 chip_smoke.py --compare FILE FILE ...  (K1's saved outputs bit-identical?)
     python3 chip_smoke.py --skip-serving           (phases 1-3, 6-13, 14-16 (b, c) and 17)
     python3 chip_smoke.py --only-moe               (phases 1-3 and 14)
     python3 chip_smoke.py --only-hybrid            (phases 1-3 and 15)
@@ -27,9 +30,10 @@ Phases, each of which raises (exit code != 0) on failure:
    prefix and 1000 frames, timed, each with a one-key control, and at
    qwen1.5-32b's 40 heads over 40; RMSNorm at musicgen-medium's 1536 and
    qwen1.5-32b's 5120, timed; at rep 16, K3 at llama3-405b's decode shape,
-   128 heads over 8, and qwen3-moe-235b-a22b's, 64 over 4, timed with a
-   one-key control, and at dh 64 and 112, and K1 at llama3-405b's prefill,
-   timed with a one-key control; RMSNorm at llama3-405b's 16384; K3's
+   128 heads over 8, and qwen3-moe-235b-a22b's, 64 over 4, and at rep 8,
+   deepseek-67b's, 64 over 8, and qwen3-vl-30b-a3b's, 32 over 4 (both on
+   the tensor cores), timed with a one-key control, and at dh 64 and 112,
+   and K1 at llama3-405b's prefill, timed with a one-key control; RMSNorm at llama3-405b's 16384; K3's
    partial form over the cache cut into 4 position pieces, the last past
    cur_index (no launch), combined, against K3 over the whole cache and the
    plain version at rep 4 and rep 16, with a piece left out as the control;
@@ -293,8 +297,10 @@ Phases, each of which raises (exit code != 0) on failure:
    (phase 4's settings) must launch K1 36, K2 2336 and K3 1116 times; the
    granite 8-layer train step (phase 6's) K2 33 and K1 16 times; rwkv6-3b's
    prefill K2 97 and K4 32 times, by the wrappers' counts exactly and by
-   the profile's kernel names but for the device events its tracer drops
-   (at most one in a thousand). For a prefill and a decode step of granite-8b, its
+   the profile's kernel names (its tracer drops a session's first device
+   events, so TRACER_MARKERS spin kernels open each profile and one at
+   least must be seen; at most one in a thousand of the path's may still
+   go missing). For a prefill and a decode step of granite-8b, its
    train step and rwkv6-3b's prefill, ``FlopCounterMode`` over the run on
    the card must equal, exactly, the FLOPs of the same program's dry run on
    a 1x1 mesh at the same shapes; the dry run's ``peak_per_device_bytes``
@@ -370,6 +376,13 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_TENSOR_FLOPS = 989e12   # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12           # fp32 outside the tensor cores
 TF32_FLOPS = 495e12          # dense TF32 tensor-core peak
+# ~0.5 ms of the card's clock (1.98 GHz at most) before each timed launch:
+# without it a host call slower than the ~80 us flush put host time
+# inside the events, a decode kernel's median reading up to 2x its own
+SPIN_CYCLES = 1_000_000
+# spin kernels that open each profile: the tracer drops a session's first
+# device events, a few dozen at most over this script's run
+TRACER_MARKERS = 256
 
 # the serving runs of phases 4 and 5
 BATCH, PROMPT, NEW_TOKENS = 8, 1000, 32
@@ -588,13 +601,16 @@ def nvidia_smi_line() -> str:
 
 def time_ms(torch, fn, flush, iters: int, warmup: int = 3) -> float:
     """Median per-launch device time of ``fn`` over ``iters`` launches, each
-    preceded (outside the timed window) by a write that evicts the L2."""
+    preceded (outside the timed window) by a write that evicts the L2 and
+    a spin of the card that outlasts the host's call of ``fn``, so the
+    start event fires only once the launch is queued behind it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -673,6 +689,21 @@ def read_close(torch, name, got, want, tol=E2E_TOL):
     share = float((diff.abs() / (tol + tol * w.abs())).max())
     rel_rms = float(diff.pow(2).mean().sqrt() / w.pow(2).mean().sqrt().clamp_min(1e-30))
     return err, share, rel_rms, bool(torch.allclose(g, w, atol=tol, rtol=tol))
+
+
+# label -> K1's output in phase 3, kept when --save asks for them
+K1_OUTPUTS = None
+
+
+def compare_saved(torch, files) -> int:
+    """Print whether K1's outputs saved by ``--save`` in ``files`` (runs of
+    this harness, one tree's kernels each) are bit-identical label by
+    label; 0 if every label is."""
+    outs = [torch.load(f) for f in files]
+    same = {label: all(label in o and torch.equal(outs[0][label], o[label])
+                       for o in outs[1:]) for label in outs[0]}
+    log(json.dumps({"k1_bit_identical": same, "files": list(files)}))
+    return 0 if all(same.values()) else 1
 
 
 def phase_kernels(torch, F, flush, names):
@@ -811,9 +842,12 @@ def kernel_flash_attention(torch, F, flush, randn, entries):
             ("full", (2, 100, 6, 3, 64, False)),
             ("tiny", (1, 5, 2, 1, 64, True))):
         q, k, v = randn(B, S, H, dh), randn(B, S, G, dh), randn(B, S, G, dh)
-        err, share = check_kernel(torch, f"flash_attention {label}",
-                                  flash_attention(q, k, v, causal),
+        got = flash_attention(q, k, v, causal)
+        if K1_OUTPUTS is not None:
+            K1_OUTPUTS[label] = got.cpu()
+        err, share = check_kernel(torch, f"flash_attention {label}", got,
                                   flash_attention_ref(q, k, v, causal))
+        del got
         line = (f"flash_attention {label} q{(B, S, H, dh)} kv{(B, S, G, dh)}: "
                 f"max|err| {err:.3e} ({share:.2f} of limit)")
         if label in ("prefill", "moe prefill", "hybrid prefill", "audio prefill",
@@ -857,8 +891,10 @@ def kernel_flash_attention(torch, F, flush, randn, entries):
 def kernel_decode_attention(torch, F, flush, randn, entries):
     """K3 flash decode at granite-8b's, deepseek-moe-16b's (rep 1),
     zamba2-7b's (rep 1, head_dim 112), musicgen-medium's (rep 1, head_dim
-    64, 24 heads, over its prefix, prompt and new frames) and qwen1.5-32b's
-    (40 heads, rep 1) decode shapes."""
+    64, 24 heads, over its prefix, prompt and new frames), qwen1.5-32b's
+    (40 heads, rep 1), llama3-405b's and qwen3-moe-235b-a22b's (rep 16),
+    and deepseek-67b's and qwen3-vl-30b-a3b's (rep 8; internvl2-76b's is
+    deepseek-67b's) decode shapes; reps 8 and 16 run the tensor-core form."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
@@ -879,6 +915,9 @@ def kernel_decode_attention(torch, F, flush, randn, entries):
             ("llama decode", (BATCH, 128, 8, 128, MAX_SEQ, cur_main)),
             ("llama tail", (BATCH, 128, 8, 128, MAX_SEQ, MAX_SEQ - 1)),
             ("qwen3moe decode", (BATCH, 64, 4, 128, MAX_SEQ, cur_main)),
+            ("deepseek67b decode", (BATCH, 64, 8, 128, MAX_SEQ, cur_main)),
+            ("qwen3vl decode", (BATCH, 32, 4, 128, MAX_SEQ, cur_main)),
+            ("rep8 tail", (BATCH, 32, 4, 128, MAX_SEQ, MAX_SEQ - 1)),
             ("rep16 dh64", (3, 32, 2, 64, 300, 299)),
             ("rep16 dh112", (3, 32, 2, 112, 300, 150)),
             ("ragged", (3, 6, 3, 64, 100, 70)),
@@ -890,7 +929,8 @@ def kernel_decode_attention(torch, F, flush, randn, entries):
         line = (f"decode_attention {label} q{(B, H, dh)} cache{(B, T, G, dh)} cur {cur}: "
                 f"max|err| {err:.3e} ({share:.2f} of limit)")
         if label in ("decode", "moe decode", "hybrid decode", "audio decode",
-                     "llama decode", "qwen3moe decode"):
+                     "llama decode", "qwen3moe decode", "deepseek67b decode",
+                     "qwen3vl decode"):
             ms = time_ms(torch, lambda: decode_attention(q, kc, vc, cur), flush, 50)
             plain = time_ms(torch, lambda: decode_attention_ref(q, kc, vc, cur), flush, 20)
             qs = q[:, :, None]
@@ -920,7 +960,7 @@ def kernel_decode_attention(torch, F, flush, randn, entries):
                     f"{key}_max_abs_err": err, f"{key}_max_err_share_of_limit": share})
         log(line)
         if label in ("decode", "hybrid decode", "audio decode", "llama decode",
-                     "qwen3moe decode"):
+                     "qwen3moe decode", "deepseek67b decode", "qwen3vl decode"):
             # the newest key left out of the kernel's range
             check_rejects(torch, f"decode_attention {label}, newest key dropped",
                           decode_attention(q, kc, vc, cur - 1),
@@ -1277,20 +1317,31 @@ def phase_profile(torch, name, cfg, params, prefix=0):
             device_profile(torch, f"{name} {label}", fn)
 
 
+def open_trace(torch):
+    """Launch TRACER_MARKERS spin kernels and wait for them: the first thing
+    in each profile, so the device events the tracer drops are theirs."""
+    for _ in range(TRACER_MARKERS):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize()
+
+
 def device_profile(torch, label, fn):
-    """Run ``fn`` once under torch.profiler (CUDA activity only); log the
-    wall, the device-busy share and the 8 largest device lines. Returns
-    (rows as (device us, key), busy s)."""
+    """Run ``fn`` once under torch.profiler (CUDA activity only), after the
+    tracer's markers; log the wall, the device-busy share and the 8 largest
+    device lines, the markers left out. Returns (rows as (device us, key),
+    busy s)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        open_trace(torch)
         t0 = time.monotonic()
         fn()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     rows = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
-                   if e.self_device_time_total > 0), reverse=True)
+                   if e.self_device_time_total > 0 and "spin_kernel" not in e.key),
+                  reverse=True)
     busy = sum(t for t, _ in rows) / 1e6
     if busy <= 0:
         raise AssertionError(f"profile {label}: the profiler saw no device time")
@@ -3185,6 +3236,7 @@ def phase_audio(torch, kcommon, paths, skip_serving, free, done):
 
 
 def main() -> int:
+    global K1_OUTPUTS
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3204,6 +3256,13 @@ def main() -> int:
                     help="run phases 1-3 and 18 only")
     ap.add_argument("--only-large", action="store_true",
                     help="run phases 1-3 and 19 only")
+    ap.add_argument("--tree", default=None,
+                    help="import repro_torch from TREE/src, not this checkout's "
+                         "(a parent's kernels timed by this harness)")
+    ap.add_argument("--save", default=None,
+                    help="write K1's outputs of phase 3 (torch.save) to this file")
+    ap.add_argument("--compare", nargs="+", default=None,
+                    help="files written by --save: are K1's outputs bit-identical?")
     args = ap.parse_args()
     # the phases an --only-* flag picks (none: every phase)
     chosen = {p for flag, p in (("moe", 14), ("hybrid", 15), ("audio", 16), ("dryrun", 18),
@@ -3218,7 +3277,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    if args.compare:
+        return compare_saved(torch, args.compare)
+    sys.path.insert(0, str((Path(args.tree).resolve() if args.tree else ROOT) / "src"))
     import gc
 
     import torch.nn.functional as F
@@ -3260,8 +3321,13 @@ def main() -> int:
 
     # -- 3. kernels vs plain ------------------------------------------------------------
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    if args.save:
+        K1_OUTPUTS = {}  # filled by kernel_flash_attention
     entries = phase_kernels(torch, F, flush, names)
     del flush
+    if args.save:
+        Path(args.save).parent.mkdir(parents=True, exist_ok=True)
+        torch.save(K1_OUTPUTS, args.save)
     done(3)
     if args.kernels is not None:  # phases 1-3 only: no main-path launches
         log(smi)
@@ -3500,23 +3566,30 @@ def phase_card_check(torch, kcommon, paths, smi, free):
         """Run ``fn`` under torch.profiler: the wrappers' counts must equal
         ``want``, and so must the launches ``analyze_profile`` finds by
         kernel name, but for at most one in a thousand (at least one)
-        missing: the tracer has dropped a device event now and then (one
-        of 2336 K2 launches, one of 97), and never added one."""
+        missing. The tracer drops the first device events of each session,
+        more the longer the process has run (4 at 55 s, 35 at 440 s on the
+        H100), and never adds one; so TRACER_MARKERS spin kernels go first,
+        and at least one of them must be seen: the drops ended before
+        ``fn``'s first launch."""
         kcommon.reset_launches()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            open_trace(torch)
             fn()
             torch.cuda.synchronize()
         p = analyze_profile(prof)
         got = {k: p.launches(KERNEL_SYMBOLS[k]) for k in kcommon.KERNELS}
+        markers = p.launches("spin_kernel")
         counts = dict(kcommon.launches)
         missed = {k: want[k] - got[k] for k in want}
-        if counts != want or any(not 0 <= m <= max(1, want[k] // 1000)
-                                 for k, m in missed.items()):
-            raise AssertionError(f"{label}: launches {counts}, profiled {got}, want {want}")
+        if counts != want or not markers or any(
+                not 0 <= m <= max(1, want[k] // 1000) for k, m in missed.items()):
+            raise AssertionError(f"{label}: launches {counts}, profiled {got}, want {want}; "
+                                 f"{markers} of {TRACER_MARKERS} markers seen")
         log(f"card check {label}: launches {counts} = the table's; profiled by kernel name "
-            f"{got} (missed {sum(missed.values())}); device busy {p.busy:.1%} of "
-            f"{p.wall_ms:.1f} ms  [{smi}]")
+            f"{got} (missed {sum(missed.values())}; the tracer dropped "
+            f"{TRACER_MARKERS - markers} of {TRACER_MARKERS} markers before them); device busy "
+            f"{p.busy:.1%} of {p.wall_ms:.1f} ms, the markers included  [{smi}]")
         return counts
 
     def counted(fn):

@@ -15,13 +15,29 @@
 //
 // Design (FlashAttention-3 style):
 // - Persistent, warp-specialised blocks of three warpgroups, one block per
-//   SM. The blocks walk the work items (q tile of 128 rows, head, batch),
-//   heaviest causal q tiles first, so the long items do not form the tail.
+//   SM. The blocks walk the work items (q tile of 128 rows, head, batch) in
+//   an order made for L2 reuse: the (batch, kv head) pairs are cut into
+//   sections whose K and V take about half the L2 (the host sizes them from
+//   T, dh and the card's L2), and a section's items run together, its causal
+//   q tiles heaviest first (the long items do not form the tail), then its
+//   pairs, then the query heads of a kv head innermost. The 132 items in
+//   flight then share their K and V tiles through L2 at any rep: at rep 1 an
+//   order with the q tile outermost put one q tile of 132 different pairs in
+//   flight, and each pair's causal prefix came from HBM again for every q
+//   tile (by the order's arithmetic ~295 MB of K/V for 66 MB unique at
+//   deepseek-moe-16b's prefill; the card's counters were not readable).
+//   On an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, the kernel table) it took
+//   deepseek-moe-16b's prefill from 0.135 to 0.101-0.102 ms (1.10-1.11x
+//   SDPA, 38-39% of its 0.0391 ms bytes bound), zamba2-7b's from 0.250 to
+//   0.181-0.182 ms (1.10x, 38%) and musicgen-medium's from 0.125 to
+//   0.116 ms (1.04-1.05x, 29%); granite-8b's and llama3-405b's times held
+//   (0.170-0.171 / 0.603-0.604 ms, 39% / 44% of their operations bound).
 //   Warpgroup 0 is the producer: it gives up its registers (setmaxnreg 24)
 //   and one thread starts the TMA loads. Warpgroups 1 and 2 are consumers, each
 //   owning 64 query rows, with 240 registers a thread.
 // - TMA: Q once per item (reloaded as soon as the consumers' last Q K^T of
-//   the item is done); K and V tiles of 128 keys each into their own
+//   the item is done), the item's (q0, head, batch, tiles) beside it in
+//   shared memory, so only the producer walks the work order; K and V tiles of 128 keys each into their own
 //   2-stage ring with a full mbarrier (the copy's byte count) and an empty
 //   one (all 256 consumer threads arrive), so K_{j+1} streams in while V_j is
 //   still in use. Tensor maps are 4-D over the contiguous (B, len, heads, dh)
@@ -48,8 +64,8 @@
 // - Causal: key tiles past the diagonal are never loaded and only tiles that
 //   cut it are masked.
 // Shared memory: Q 128 x dh + 2 stages x (K + V) 128 x dh, bf16, plus 10
-// mbarriers: 164,944 bytes at dh 128 (and at dh 112, padded), 83,024 at dh
-// 64 (dynamic).
+// mbarriers and the item: 164,960 bytes at dh 128 (and at dh 112, padded),
+// 83,040 at dh 64 (dynamic).
 // ptxas (CUDA 12.9, sm_90a): 168 registers a thread at launch for both dh
 // (the consumers raise theirs to 240), no spills, 16 named barriers. The
 // mma.sync kernel this replaces took 168 registers and 34,816 bytes of
@@ -86,7 +102,8 @@ struct Layout {
     static constexpr int kK = kQBytes;                       // + stage * kTileBytes
     static constexpr int kV = kK + kStages * kTileBytes;     // + stage * kTileBytes
     static constexpr int kBar = kV + kStages * kTileBytes;   // 2 + 4 * kStages mbarriers
-    static constexpr int kBytes = kBar + 8 * (2 + 4 * kStages) + 1024;  // + alignment slack
+    static constexpr int kItem = kBar + 8 * (2 + 4 * kStages);  // int [4]: the loaded q's Item
+    static constexpr int kBytes = kItem + 16 + 1024;  // + alignment slack
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -177,18 +194,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 
 // ---- the kernel ---------------------------------------------------------------
 
-// Work item -> (q tile start, head, batch), heaviest q tiles first.
+// Work item -> (q tile start, head, batch). Sections of `sec` (batch, kv
+// head) pairs (the last may hold fewer) follow one another; within one, the
+// q tiles heaviest first, then the pairs, then the rep query heads of the
+// pair's kv head. kernels/flash_attention/ops.py `work_item` mirrors it.
 struct Item {
     int q0, h, b, n_tiles;
 };
 
-__device__ __forceinline__ Item item_of(int item, int n_qt, int S, int T, int H, int B,
-                                        int causal) {
+__device__ __forceinline__ Item item_of(int item, int n_qt, int S, int T, int H, int G, int B,
+                                        int sec, int causal) {
     Item it;
-    const int per_tile = H * B;
-    it.q0 = (n_qt - 1 - item / per_tile) * kBlockQ;
-    it.h = item % H;
-    it.b = (item % per_tile) / H;
+    const int rep = H / G;
+    const int per_sec = sec * rep * n_qt;         // the items of a whole section
+    const int first = item / per_sec * sec;       // the section's first pair
+    const int j = item % per_sec;                 // the item within its section
+    const int per_qt = min(sec, B * G - first) * rep;
+    const int pair = first + j % per_qt / rep;    // b * G + g
+    it.q0 = (n_qt - 1 - j / per_qt) * kBlockQ;
+    it.h = pair % G * rep + j % rep;
+    it.b = pair / G;
     it.n_tiles = (T + kBlockK - 1) / kBlockK;
     if (causal) it.n_tiles = min(it.n_tiles, (min(it.q0 + kBlockQ, S) - 1) / kBlockK + 1);
     return it;
@@ -305,12 +330,13 @@ template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
               const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o, int B, int S,
-              int T, int H, int G, float scale_log2, int causal) {
+              int T, int H, int G, int sec, float scale_log2, int causal) {
     using L = Layout<D>;
     constexpr int kChunks = D / 64;  // TMA boxes (128-byte column blocks) per row
     static_assert(DV <= D && DV % 8 == 0, "stored columns: whole 8-column groups");
     extern __shared__ uint8_t smem_raw[];
     const uint32_t base = ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+    uint8_t* smem = smem_raw + (base - (uint32_t)__cvta_generic_to_shared(smem_raw));
     const uint32_t sq = base + L::kQ, sk = base + L::kK, sv = base + L::kV;
     // barriers: q_full, q_empty, then per stage k_full, v_full, k_empty, v_empty
     const uint32_t q_full = base + L::kBar, q_empty = q_full + 8u;
@@ -318,6 +344,9 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__
     auto v_full = [&](int s) { return q_full + 8u * (3 + 4 * s); };
     auto k_empty = [&](int s) { return q_full + 8u * (4 + 4 * s); };
     auto v_empty = [&](int s) { return q_full + 8u * (5 + 4 * s); };
+    // the producer hands each item's (q0, h, b, n_tiles) to the consumers
+    // with its q tile: written before q_full's arrive, read after its wait
+    int* item_s = reinterpret_cast<int*>(smem + L::kItem);
 
     const int n_qt = (S + kBlockQ - 1) / kBlockQ;
     const int n_items = n_qt * H * B;
@@ -342,9 +371,13 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__
         if (threadIdx.x == 0) {
             int ring = 0;  // tiles loaded so far
             for (int item = blockIdx.x, n = 0; item < n_items; item += gridDim.x, ++n) {
-                const Item it = item_of(item, n_qt, S, T, H, B, causal);
+                const Item it = item_of(item, n_qt, S, T, H, G, B, sec, causal);
                 const int g = it.h / rep;
                 mbar_wait(q_empty, (n & 1) ^ 1);  // the first wait passes
+                item_s[0] = it.q0;
+                item_s[1] = it.h;
+                item_s[2] = it.b;
+                item_s[3] = it.n_tiles;
                 mbar_expect_tx(q_full, L::kQBytes);
 #pragma unroll
                 for (int c = 0; c < kChunks; ++c)
@@ -380,7 +413,8 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__
         if (cw == 1) turn_pass(cw);  // warpgroup 0 goes first
 
         for (int item = blockIdx.x, n = 0; item < n_items; item += gridDim.x, ++n) {
-            const Item it = item_of(item, n_qt, S, T, H, B, causal);
+            mbar_wait(q_full, n & 1);
+            const Item it = {item_s[0], item_s[1], item_s[2], item_s[3]};
             const int wg_row0 = it.q0 + 64 * cw;
             const int row_a = wg_row0 + 16 * warp + gid, row_b = row_a + 8;
 
@@ -394,7 +428,6 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__
             uint32_t pa[kBlockK / 16][4];
 
             // Tile 0: S = Q K^T, then P.
-            mbar_wait(q_full, n & 1);
             {
                 const int s = ring % kStages;
                 mbar_wait(k_full(s), (ring / kStages) & 1);
@@ -476,7 +509,7 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__
 
 template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, bf16* o, int B, int S, int T, int H,
-           int G, float scale_log2, int causal, cudaStream_t st) {
+           int G, int sec, float scale_log2, int causal, cudaStream_t st) {
     CUtensorMap q_map, k_map, v_map;
     const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
     if (!make_map(&q_map, q, B, S, H, DV, 64, kBlockQ, sw) ||
@@ -494,22 +527,25 @@ int launch(const void* q, const void* k, const void* v, bf16* o, int B, int S, i
     const long long n_items = (long long)((S + kBlockQ - 1) / kBlockQ) * H * B;
     const int grid = (int)(n_items < n_sm ? n_items : n_sm);  // one persistent block per SM
     fa_fwd_kernel<D, DV><<<grid, kThreads, bytes, st>>>(q_map, k_map, v_map, o, B, S, T, H, G,
-                                                        scale_log2, causal);
+                                                        sec, scale_log2, causal);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q: (B, S, H, dh), k/v: (B, T, G, dh), o: (B, S, H, dh); all bf16, contiguous,
-// 16-byte aligned; dh in {64, 112, 128}; H % G == 0 (the Python wrapper checks).
+// 16-byte aligned; dh in {64, 112, 128}; H % G == 0; 1 <= sec <= B * G, the
+// (batch, kv head) pairs of a section of the work order (the Python wrapper
+// checks and sizes it).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int B, int S, int T, int H, int G, int dh, float scale,
-                                   int causal, void* stream) {
+                                   int B, int S, int T, int H, int G, int dh, int sec,
+                                   float scale, int causal, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const float scale_log2 = scale * kLog2e;
     bf16* op = static_cast<bf16*>(o);
-    if (dh == 128) return launch<128, 128>(q, k, v, op, B, S, T, H, G, scale_log2, causal, st);
-    if (dh == 112) return launch<128, 112>(q, k, v, op, B, S, T, H, G, scale_log2, causal, st);
-    if (dh == 64) return launch<64, 64>(q, k, v, op, B, S, T, H, G, scale_log2, causal, st);
+    if (sec < 1 || sec > B * G) return static_cast<int>(cudaErrorInvalidValue);
+    if (dh == 128) return launch<128, 128>(q, k, v, op, B, S, T, H, G, sec, scale_log2, causal, st);
+    if (dh == 112) return launch<128, 112>(q, k, v, op, B, S, T, H, G, sec, scale_log2, causal, st);
+    if (dh == 64) return launch<64, 64>(q, k, v, op, B, S, T, H, G, sec, scale_log2, causal, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -86,12 +86,14 @@ inline EncodeTiled encoder() {
 }
 
 // A contiguous (B, len, heads, D) bf16 tensor read in boxes of `cols` x 1
-// head x `rows` rows x 1 batch; rows past `len` read as zeros.
+// head x `rows` rows x 1 batch; rows past `len`, or past `valid` rows where
+// given (0 < valid <= len), read as zeros.
 inline bool make_map(CUtensorMap* map, const void* ptr, int B, int len, int heads, int D,
-                     int cols, int rows, CUtensorMapSwizzle swizzle) {
+                     int cols, int rows, CUtensorMapSwizzle swizzle, int valid = 0) {
     EncodeTiled fn = encoder();
     if (fn == nullptr) return false;
-    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)len, (cuuint64_t)B};
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                                (cuuint64_t)(valid > 0 ? valid : len), (cuuint64_t)B};
     const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
                                    (cuuint64_t)len * heads * D * 2};
     const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};

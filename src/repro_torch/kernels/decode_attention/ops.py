@@ -34,8 +34,8 @@ _ARGTYPES = {"decode_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _I, _I, _I, ctypes.c_float, _P]}
 #: 112 (zamba2-7b's shared block) runs the dh-128 kernel over a zero pad
 HEAD_DIMS = (64, 112, 128)
-#: query heads a KV head serves; a warp group holds at most 8, and rep 16
-#: runs two of them over one ring of cache tiles
+#: query heads a KV head serves: 1, 2 and 4 on the CUDA cores, 8 and 16 as
+#: the 16 rows of the tensor cores' mma.sync.m16n8k16 (rows 8-15 zero at 8)
 REPS = (1, 2, 4, 8, 16)
 #: keys per copy stage; must equal kTile in csrc/decode_attention.cu
 TILE = 32

@@ -8,6 +8,11 @@ dense attention counts them: two products over the full S x T scores,
 the diagonal are skipped). DTensors shard it on batch, and on heads where
 every mesh dim divides both the query and the KV heads.
 
+The kernel's persistent blocks walk the work items (q tile, head, batch) in
+sections of (batch, kv head) pairs whose K and V take about half the
+card's L2 (``l2_section``, ``work_item``: the same map the kernel's
+``item_of`` computes), so the items in flight share K and V through L2.
+
 The backward is the reference's own rule
 (``src/repro/kernels/flash_attention/ops.py`` ``_bwd``): recompute the plain
 version and differentiate it.
@@ -15,19 +20,52 @@ version and differentiate it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.common import (aligned16, define_op, launch, load,
-                                        mesh_divides, on_cpu, require)
+from repro_torch.kernels.common import (aligned16, cdiv, define_op, launch,
+                                        load, mesh_divides, on_cpu, require)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                     ctypes.c_float, _I, _P]}
+                                     _I, ctypes.c_float, _I, _P]}
 #: 112 (zamba2-7b's shared block) runs the dh-128 kernel over a zero pad
 HEAD_DIMS = (64, 112, 128)
+#: rows of a q tile; must equal kBlockQ in csrc/flash_attention.cu
+BLOCK_Q = 128
+
+
+def l2_section(B: int, G: int, T: int, dh: int, l2_bytes: int) -> int:
+    """(batch, kv head) pairs a section of the work order holds: as many as
+    keep their K and V (2 x T x dh bf16 each) within half of ``l2_bytes``,
+    at least one, then evened out over the sections that makes."""
+    most = max(1, l2_bytes // 2 // (4 * T * dh))
+    return cdiv(B * G, cdiv(B * G, most))
+
+
+def work_item(item: int, B: int, S: int, H: int, G: int,
+              sec: int) -> Tuple[int, int, int]:
+    """Work item -> (first q row, head, batch), as the kernel's ``item_of``
+    maps it: sections of ``sec`` pairs in turn (the last may hold fewer);
+    within one, the q tiles heaviest first (the last first), then the
+    pairs, then the query heads of a kv head."""
+    rep, n_qt = H // G, cdiv(S, BLOCK_Q)
+    first = item // (sec * rep * n_qt) * sec
+    j = item % (sec * rep * n_qt)
+    per_qt = min(sec, B * G - first) * rep
+    pair = first + j % per_qt // rep
+    return ((n_qt - 1 - j // per_qt) * BLOCK_Q, pair % G * rep + j % rep,
+            pair // G)
+
+
+@functools.lru_cache(maxsize=None)
+def _l2_bytes(device: torch.device) -> int:
+    """The card's L2 size (``cudaDevAttrL2CacheSize``)."""
+    return torch.cuda.get_device_properties(device).L2_cache_size
 
 
 def _flash_attention_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -50,10 +88,11 @@ def _flash_attention_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "flash_attention kernel takes contiguous 16-byte aligned tensors")
     require(T > 0, "flash_attention needs at least one key")
     out = torch.empty_like(q)
+    sec = l2_section(B, G, T, dh, _l2_bytes(q.device))
     lib = load("flash_attention", _ARGTYPES)
     launch("flash_attention", lib.flash_attention_fwd, q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-           B, S, T, H, G, dh, 1.0 / math.sqrt(dh), int(causal))
+           B, S, T, H, G, dh, sec, 1.0 / math.sqrt(dh), int(causal))
     return out
 
 

@@ -158,6 +158,10 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape):
     (8, 1000, 1000, 128, 8, 128, True),
     (2, 45, 45, 16, 1, 64, True),
     (1, 200, 333, 32, 2, 112, False),
+    # rep 1 at zamba2-7b's and deepseek-moe-16b's widths over 2 prompts:
+    # the work order's sections hold all 64 / 32 (batch, kv head) pairs
+    (2, 1000, 1000, 32, 32, 112, True),
+    (2, 1000, 1000, 16, 16, 128, True),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, S, T, H, G, dh, causal):
     gen = torch.Generator(device=cuda).manual_seed(1)
@@ -166,6 +170,28 @@ def test_flash_attention_kernel_matches_plain(cuda, B, S, T, H, G, dh, causal):
     v = _randn(gen, (B, T, G, dh), torch.bfloat16, cuda)
     _assert_kernel_close(flash_attention(q, k, v, causal),
                          flash_attention_ref(q, k, v, causal), c=2e-2)
+
+
+@pytest.mark.parametrize("B,S,H,G,dh,sections", [
+    (2, 3000, 20, 20, 128, [14, 14, 12]),  # 40 pairs of 1.5 MB of K and V
+    (3, 4000, 9, 9, 112, [14, 13]),
+    (1, 2500, 13, 13, 64, [13]),           # fewer pairs than a section holds
+    (2, 4000, 52, 13, 128, [9, 9, 8]),     # rep 4
+])
+def test_flash_attention_work_order_sections_match_plain(cuda, B, S, H, G, dh,
+                                                         sections):
+    """K1 with its (batch, kv head) pairs cut into sections of about half
+    the card's 50 MB L2, a partial last one among them, and S not a
+    multiple of the 128-row q tile."""
+    from repro_torch.kernels.flash_attention.ops import _l2_bytes, l2_section
+    sec = l2_section(B, G, S, dh, _l2_bytes(cuda))
+    assert [min(sec, B * G - i) for i in range(0, B * G, sec)] == sections
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q = _randn(gen, (B, S, H, dh), torch.bfloat16, cuda)
+    k = _randn(gen, (B, S, G, dh), torch.bfloat16, cuda)
+    v = _randn(gen, (B, S, G, dh), torch.bfloat16, cuda)
+    _assert_kernel_close(flash_attention(q, k, v, True),
+                         flash_attention_ref(q, k, v, True), c=2e-2)
 
 
 @pytest.mark.parametrize("B,H,G,dh,T,cur", [
@@ -199,7 +225,7 @@ def test_flash_attention_kernel_matches_plain(cuda, B, S, T, H, G, dh, causal):
     (8, 24, 24, 64, 1160, 1128),
     (8, 24, 24, 64, 1160, 1159),
     (3, 24, 24, 64, 100, 70),
-    # rep 16, two warp groups over one ring: llama3-405b's decode (128
+    # rep 16 on the tensor cores: llama3-405b's decode (128
     # heads over 8), qwen3-moe-235b-a22b's (64 over 4), at dh 64, 112 and
     # 128, ragged tails, one key, a long cache
     (8, 128, 8, 128, 1032, 1015),
@@ -219,11 +245,28 @@ def test_decode_attention_kernel_matches_plain(cuda, B, H, G, dh, T, cur):
                          decode_attention_ref(q, kc, vc, cur), c=1e-2)
 
 
+@pytest.mark.parametrize("rep", [8, 16])
+@pytest.mark.parametrize("dh", [64, 112, 128])
+@pytest.mark.parametrize("cur", [0, 30, 31, 32, 95, 127, 159, 191, 223, 299])
+def test_decode_attention_tensor_core_form_matches_plain(cuda, rep, dh, cur):
+    """Rep 8 and 16 on the tensor cores over a 300-position cache: one key,
+    a tile's last key, one tile, one key past it, then 3 to 10 tiles, so
+    clusters of 1 to 8 CTAs with 1 to 4 warps holding a tile."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    B, G, T = 2, 2, 300
+    q = _randn(gen, (B, rep * G, dh), torch.bfloat16, cuda)
+    kc = _randn(gen, (B, T, G, dh), torch.bfloat16, cuda)
+    vc = _randn(gen, (B, T, G, dh), torch.bfloat16, cuda)
+    _assert_kernel_close(decode_attention(q, kc, vc, cur),
+                         decode_attention_ref(q, kc, vc, cur), c=1e-2)
+
+
 @pytest.mark.parametrize("B,H,G,dh,T,cur,cuts", [
     (8, 128, 8, 128, 1032, 1015, (258, 516, 1020)),  # rep 16, one piece past cur
     (8, 32, 8, 128, 1032, 1015, (258, 516, 1020)),   # rep 4
     (2, 64, 4, 64, 300, 120, (100, 130, 200)),       # rep 16 at dh 64, two empty
     (2, 32, 2, 112, 300, 299, (1, 150)),             # dh 112, a one-key piece
+    (2, 16, 2, 112, 300, 120, (100, 130, 200)),      # rep 8 at dh 112, two empty
 ])
 def test_decode_attention_partial_pieces_combined_match_whole_and_plain(
         cuda, B, H, G, dh, T, cur, cuts):

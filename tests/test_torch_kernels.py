@@ -28,7 +28,8 @@ from repro.kernels.rmsnorm.ref import rmsnorm_ref as jax_rms_ref  # noqa: E402
 from repro_torch.kernels import common as kcommon  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     MAX_CLUSTER, TILE, decode_attention, decode_plan)
-from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    BLOCK_Q, flash_attention, l2_section, work_item)
 from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
 
 DTYPES = ["float32", "bfloat16"]
@@ -198,3 +199,51 @@ def test_decode_plan_gives_every_cta_of_a_cluster_a_tile(n_valid):
     assert spans[0][0] == 0 and spans[-1][1] == n_tiles
     assert all(end > start for start, end in spans)
     assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+
+
+def test_k1_block_q_matches_the_kernel_source():
+    src = (kcommon.CSRC_DIR / "flash_attention.cu").read_text()
+    assert re.search(rf"constexpr int kBlockQ = {BLOCK_Q};", src)
+
+
+H100_L2 = 50 * 2**20
+
+
+@pytest.mark.parametrize("B,S,H,G,dh,l2", [
+    (8, 1000, 16, 16, 128, H100_L2),   # deepseek-moe-16b: 128 pairs, 43 a section
+    (8, 1000, 32, 32, 112, H100_L2),   # zamba2-7b: 256 pairs, 52 a section
+    (8, 1000, 128, 8, 128, H100_L2),   # llama3-405b, rep 16: 2 sections of 32
+    (2, 3000, 20, 20, 128, H100_L2),   # a partial last section: 14, 14, 12
+    (3, 130, 6, 2, 64, 4 * 130 * 64 * 2 * 2),  # 2 pairs a section, 3 sections
+    (1, 45, 4, 4, 128, H100_L2),       # B G below one section, one q tile
+    (2, 257, 8, 4, 112, 4 * 257 * 112 * 3 * 2),  # S = 2 tiles + 1 row, sections of 3, 3, 2
+])
+def test_k1_work_order_is_a_bijection_heaviest_first_within_a_section(
+        B, S, H, G, dh, l2):
+    """``work_item`` (the kernel's ``item_of``) maps the items onto every
+    (q tile, head, batch) once; a section holds at most the pairs whose K
+    and V fit half the L2, and runs its q tiles heaviest first, its pairs
+    next and the rep query heads of a kv head innermost."""
+    rep, n_qt = H // G, -(-S // BLOCK_Q)
+    sec = l2_section(B, G, S, dh, l2)
+    assert 1 <= sec <= B * G
+    assert sec == 1 or sec * 4 * S * dh <= l2 // 2
+    n_sec = -(-B * G // sec)
+    assert (n_sec - 1) * sec < B * G  # sections even: none is empty
+    items = [work_item(i, B, S, H, G, sec) for i in range(n_qt * H * B)]
+    assert sorted(items) == sorted((qt * BLOCK_Q, h, b) for qt in range(n_qt)
+                                   for h in range(H) for b in range(B))
+    i = 0
+    for first in range(0, B * G, sec):
+        pairs = min(sec, B * G - first)
+        block = items[i:i + pairs * rep * n_qt]
+        i += len(block)
+        # the section's own pairs only
+        assert {b * G + h // rep for _, h, b in block} == set(range(first, first + pairs))
+        q0s = [q0 for q0, _, _ in block]
+        assert q0s == sorted(q0s, reverse=True)  # heaviest q tile first
+        for j in range(0, len(block), rep):  # a kv head's rep heads together
+            group = block[j:j + rep]
+            assert len({(q0, h // rep, b) for q0, h, b in group}) == 1
+            assert [h % rep for _, h, _ in group] == list(range(rep))
+    assert i == len(items)
