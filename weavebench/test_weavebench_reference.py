@@ -1,0 +1,101 @@
+"""The plain reference against itself across a seed, its parameter layout
+against the program's, and the controls of each cell's comparison at a
+size a test run holds (at the cell's own size on a card)."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from wb import check  # noqa: E402
+from wb.control import control_readings  # noqa: E402
+from wb.reference import transformer as R  # noqa: E402
+from wb.spec import Spec  # noqa: E402
+from wb.weights import draw_leaf  # noqa: E402
+
+SPEC = Spec()
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """These models are small: one CPU thread runs them fastest, and keeps
+    them fast beside other processes."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+CELLS = [w["name"] for w in SPEC.data["workloads"]]
+SMALL = {"num_layers": 2, "d_model": 128, "num_heads": 4, "num_kv_heads": 2, "head_dim": 32,
+         "d_ff": 256, "vocab_size": 512}
+SMALL_MOE = dict(SMALL, moe_num_experts=8, moe_top_k=2, moe_d_ff=32)
+
+
+def small(cell):
+    cfg = SPEC.config(SPEC.cell(cell))
+    traffic = SPEC.traffic(SPEC.cell(cell))
+    model = SMALL_MOE if cfg["model"].get("moe_num_experts") else SMALL
+    tr = {"seq_len": min(traffic["seq_len"], 64 * (traffic["seq_len"] // 1024)),
+          "backlog_steps": 4}
+    if traffic["frontend_prefix"]:
+        tr["frontend_prefix"] = 8
+    return {"model": model, "traffic": tr}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return "cuda"
+
+
+def test_the_reference_repeats_itself_and_follows_the_seed():
+    cfg = SPEC.config(SPEC.cell(CELLS[0]))
+    m = dict(cfg["model"], **SMALL)
+    opt = SPEC.traffic(SPEC.cell(CELLS[0]))["optimizer"]
+    lay = R.layout(m)
+    batches = [torch.randint(0, m["vocab_size"], (2, 16), generator=torch.Generator().manual_seed(i))
+               for i in range(2)]
+
+    def read(seed):
+        return R.train_readings(m, opt, lambda i: draw_leaf(seed, i, lay[i], "cpu"), batches)
+
+    a, b, c = read(2**31 + 5), read(2**31 + 5), read(2**31 + 6)
+    assert a == b
+    assert a["grad1"] != c["grad1"] and a["change"] != c["change"]
+    assert all(x > 0 for x in a["change"].values())
+
+
+@pytest.mark.parametrize("name", sorted({w["config"] for w in SPEC.data["workloads"]}))
+def test_the_reference_layout_is_the_program_tree(name):
+    import numpy as np
+
+    from repro_torch.models import param_specs
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.config import ModelConfig
+
+    cell = next(w for w in SPEC.data["workloads"] if w["config"] == name)
+    m = SPEC.config(cell)["model"]
+    shapes = [tuple(s.shape) for s in tree_leaves(param_specs(ModelConfig(**m)))]
+    assert shapes == [tuple(spec[1]) for spec in R.layout(m)]
+    assert sum(int(np.prod(s)) for s in shapes) == ModelConfig(**m).param_count()
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_each_control_comes_out_not_correct(cell):
+    limits = SPEC.limits(SPEC.cell(cell))
+    out = control_readings(SPEC, cell, 2**31 + 77, "cpu", small(cell))
+    controls = [c for c in ("fp8", "half_batch") if c in out]
+    assert "fp8" in controls
+    for c in controls:
+        assert not check.judge(out[c], limits), (c, out[c])
+    # a state left unchanged reads 1 on the change of every leaf
+    assert not check.judge({"change_gap": 1.0}, limits)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", CELLS)
+def test_each_control_comes_out_not_correct_at_the_cells_size(cell, cuda):
+    limits = SPEC.limits(SPEC.cell(cell))
+    out = control_readings(SPEC, cell, 2**31 + 78, cuda)
+    for c in ("fp8", "half_batch"):
+        if c in out:
+            assert not check.judge(out[c], limits), (c, out[c])
