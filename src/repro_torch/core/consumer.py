@@ -42,7 +42,10 @@ class ConsumerStats(StatsView):
     live in the process metrics registry so the flight recorder and the
     ``batchweave obs`` CLI can see them. ``read_latencies`` is a registry
     ``Histogram`` — a ``LatencyWindow`` subclass, so iteration/``len``/
-    ``append`` behave exactly as before.
+    ``append`` behave exactly as before. ``get_latencies`` holds every
+    object-store GET of the read path (footer, slice and vectored reads,
+    direct and prefetch), timed at the consumer's call into the store, so a
+    resilient store's retries, hedges and governor waits are inside it.
     """
 
     _FAMILY = "consumer"
@@ -54,6 +57,7 @@ class ConsumerStats(StatsView):
         "manifest_polls": COUNTER,
         "read_retries": COUNTER,     # transient-fault retries on the data path
         "read_latencies": HISTOGRAM,
+        "get_latencies": HISTOGRAM,
         "prefetch_hits": COUNTER,
         "prefetch_misses": COUNTER,
         # degraded mode: batches served from prefetch while the store's
@@ -65,6 +69,42 @@ class ConsumerStats(StatsView):
     @property
     def read_amplification(self) -> float:
         return self.bytes_fetched / max(1, self.bytes_consumed)
+
+
+class _TimedGets:
+    """The store as the consumer's ``TGBReader``s see it: each GET (whole,
+    ranged or vectored) is timed into ``consumer.get`` spans and the
+    consumer's ``get_latencies``; everything else passes through."""
+
+    def __init__(self, consumer: "Consumer"):
+        self._consumer = consumer
+        self._store = consumer.store
+
+    def _timed(self, call, *args, **kw):
+        c = self._consumer
+        t0 = c.clock.now()
+        try:
+            with trace_span("consumer.get", cat="read") as span:
+                out = call(*args, **kw)
+                span.annotate(bytes=sum(len(v) for v in out)
+                              if isinstance(out, list) else len(out))
+        finally:
+            # a GET that failed took its time too
+            with c._stats_lock:
+                c.stats.get_latencies.append(c.clock.now() - t0)
+        return out
+
+    def get(self, key: str) -> bytes:
+        return self._timed(self._store.get, key)
+
+    def get_range(self, key: str, start: int, length: int) -> bytes:
+        return self._timed(self._store.get_range, key, start, length)
+
+    def get_ranges(self, key: str, ranges, **kw) -> list:
+        return self._timed(self._store.get_ranges, key, ranges, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self._store, name)
 
 
 @dataclass(frozen=True)
@@ -200,6 +240,7 @@ class Consumer:
         self.stats = ConsumerStats(
             stats_instance or f"d{pos.dp_rank}c{pos.cp_rank}")
         self._stats_lock = threading.Lock()
+        self._gets = _TimedGets(self)
         # optional flight recorder: this rank's counters become readable from
         # storage (lag/throughput diagnosis without touching the process)
         self._recorder = None
@@ -275,7 +316,7 @@ class Consumer:
         tail = self.speculative_tail
         if tail > 0 and self._window_hint is not None:
             tail = self._window_hint
-        r = TGBReader(self.store, key, object_size=size_hint,
+        r = TGBReader(self._gets, key, object_size=size_hint,
                       speculative_tail=tail)
         with self._footer_lock:
             cached = self._footers.get(key)

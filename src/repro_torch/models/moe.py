@@ -24,6 +24,13 @@ back to ``"scatter"``, as the reference does without a mesh.
 
 Shared (always-on) experts are a plain dense SwiGLU added to the routed
 output. Aux load-balance loss: E * sum_e(f_e * p_e) * ``moe_aux_coef``.
+
+While the tracer is enabled, ``moe_ffn`` on one device records the device
+span ``moe.dispatch`` (router, top-k, ``plan``, dispatch, gather back and
+combine) around ``moe.experts`` (``_expert_compute``); the dispatch's args
+are ``choices`` (T·K), ``slots`` (E·cap, the expert bmms' rows) and
+``kept`` (the choices within capacity, a device count read later). A
+remat's recompute records both again inside the backward.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import torch
 
 from repro_torch.models.common import ParamSpec, swiglu
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.tracer import TRACER, trace_span
 
 
 def moe_param_specs(cfg: ModelConfig, L: int) -> Dict[str, ParamSpec]:
@@ -212,33 +220,41 @@ def moe_ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     E, K = cfg.moe_num_experts, cfg.moe_top_k
     T = B * S
     xt = x.reshape(T, D)
-    probs, onehot, gate_idx, gate_vals, pos_in_e, keep, cap = \
-        _routing(cfg, p, xt)
     cd = cfg.cdtype
+    with trace_span("moe.dispatch", cat="compute", device=True,
+                    choices=T * K) as span:
+        probs, onehot, gate_idx, gate_vals, pos_in_e, keep, cap = \
+            _routing(cfg, p, xt)
+        if TRACER.enabled:
+            span.annotate(kept=keep.sum(), slots=E * cap)
 
-    if cfg.moe_dispatch in ("scatter", "local"):  # "local" without a mesh
-        slot = gate_idx * cap + pos_in_e                         # (T, K)
-        slot = torch.where(keep, slot, E * cap).reshape(T * K)   # drop bucket
-        upd = xt.to(cd)[:, None, :].expand(T, K, D).reshape(T * K, D)
-        buf = torch.zeros((E * cap + 1, D), dtype=cd, device=x.device)
-        buf = torch.index_add(buf, 0, slot, upd)
-        out = _expert_compute(cfg, p, buf[:-1].view(E, cap, D))
-        flat_out = torch.cat([out.reshape(E * cap, D),
-                              torch.zeros((1, D), dtype=cd, device=x.device)])
-        y_tk = flat_out.index_select(0, slot).view(T, K, D)      # gather back
-        # einsum("tkd,tk->td"): a product that accumulates in fp32
-        y = torch.bmm(gate_vals.to(cd)[:, None, :], y_tk).view(B, S, D)
-    else:
-        slots = torch.arange(cap, device=x.device)
-        pos_oh = (pos_in_e[..., None] == slots).float()          # (T, K, cap)
-        dispatch = torch.einsum(
-            "tke,tkc->tec", onehot * keep[..., None].float(), pos_oh)
-        combine = torch.einsum("tke,tkc->tec",
-                               onehot * gate_vals[..., None], pos_oh)
-        expert_in = torch.einsum("td,tec->ecd", xt.to(cd), dispatch.to(cd))
-        out = _expert_compute(cfg, p, expert_in)
-        y = torch.einsum("ecd,tec->td", out,
-                         combine.to(cd)).reshape(B, S, D)
+        if cfg.moe_dispatch in ("scatter", "local"):  # "local" without a mesh
+            slot = gate_idx * cap + pos_in_e                         # (T, K)
+            slot = torch.where(keep, slot, E * cap).reshape(T * K)   # drop bucket
+            upd = xt.to(cd)[:, None, :].expand(T, K, D).reshape(T * K, D)
+            buf = torch.zeros((E * cap + 1, D), dtype=cd, device=x.device)
+            buf = torch.index_add(buf, 0, slot, upd)
+            with trace_span("moe.experts", cat="compute", device=True):
+                out = _expert_compute(cfg, p, buf[:-1].view(E, cap, D))
+            flat_out = torch.cat([out.reshape(E * cap, D),
+                                  torch.zeros((1, D), dtype=cd,
+                                              device=x.device)])
+            y_tk = flat_out.index_select(0, slot).view(T, K, D)  # gather back
+            # einsum("tkd,tk->td"): a product that accumulates in fp32
+            y = torch.bmm(gate_vals.to(cd)[:, None, :], y_tk).view(B, S, D)
+        else:
+            slots = torch.arange(cap, device=x.device)
+            pos_oh = (pos_in_e[..., None] == slots).float()      # (T, K, cap)
+            dispatch = torch.einsum(
+                "tke,tkc->tec", onehot * keep[..., None].float(), pos_oh)
+            combine = torch.einsum("tke,tkc->tec",
+                                   onehot * gate_vals[..., None], pos_oh)
+            expert_in = torch.einsum("td,tec->ecd", xt.to(cd),
+                                     dispatch.to(cd))
+            with trace_span("moe.experts", cat="compute", device=True):
+                out = _expert_compute(cfg, p, expert_in)
+            y = torch.einsum("ecd,tec->td", out,
+                             combine.to(cd)).reshape(B, S, D)
 
     if cfg.moe_num_shared:  # shared experts (dense path)
         xs = x.to(cd)

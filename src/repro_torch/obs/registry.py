@@ -144,6 +144,13 @@ class MetricsRegistry:
                 return self._metrics[name].value
             return self._histograms[name].summary()
 
+    def histograms(self, prefix: str = "") -> Dict[str, Histogram]:
+        """The histograms whose names start with ``prefix``, by name (their
+        sample tails, where ``get`` gives only a summary)."""
+        with self._lock:
+            return {n: h for n, h in self._histograms.items()
+                    if n.startswith(prefix)}
+
     def snapshot(self, prefix: str = "") -> Dict[str, object]:
         """Flat ``{dotted.name: value}`` dict (histograms as summary dicts),
         optionally filtered to one instance prefix."""

@@ -17,18 +17,70 @@ Two export surfaces:
     totals, and the headline split the paper's fig5/fig12 arguments turn
     on — how much wall time went to data-plane waits vs compute.
 
-Span taxonomy (catalog in docs/OBSERVABILITY.md): categories are ``commit``,
+Span taxonomy (the data plane's catalog is docs/OBSERVABILITY.md; the
+port's own spans are listed below): categories are ``commit``,
 ``read``, ``prefetch``, ``derive``, ``checkpoint``, ``compute``; names are
 ``<component>.<phase>`` (e.g. ``commit.cput``, ``consumer.footer``).
+
+Each span records the id of the span open on its thread when it began
+(``parent``). A span that opens on a thread with none open while that
+thread runs an autograd backward (the engine's device thread running a
+rematerialized forward on CUDA) hangs under the innermost device span still
+open, which is the trainer's ``train.backward``.
+
+A span opened with ``device=True`` also times the device: while CUDA is
+there it records a ``torch.cuda.Event`` pair on the current stream, and it
+opens ``torch.profiler.record_function(name)`` so a profiler trace shows the
+same names. Its ``device_s`` and any 0-d tensors among its args are read
+only when spans are read or exported (``spans()``), never at span exit, so
+the traced code takes no host sync. Host ``t0`` / ``dur`` stay on
+``time.perf_counter``. Torch is imported only inside a live device span:
+the data plane's writer runs before torch loads.
+
+Spans of the port beside the data plane's:
+
+  ===================  =======  ==============================================
+  name                 cat      region (args)
+  ===================  =======  ==============================================
+  ``consumer.get``     read     one object-store GET of the read path: footer,
+                                slice or vectored, direct or prefetch, timed
+                                at the consumer's call into the store, so a
+                                resilient store's retries, hedges and
+                                governor waits are inside (``bytes``); the
+                                always-on histogram
+                                ``consumer.<instance>.get_latencies`` holds
+                                the same latencies in seconds
+  ``train.step``       compute  device span: one ``make_train_step`` call
+  ``train.forward``    compute  device span: ``loss_fn`` of one microbatch
+  ``train.backward``   compute  device span: the grads (a remat's recompute
+                                inside), their cast to fp32 or accumulation
+  ``train.optimizer``  compute  device span: ``adamw_update``, the global norm
+                                included
+  ``moe.dispatch``     compute  device span: router, top-k, ``plan``,
+                                dispatch, gather back, combine (``choices`` =
+                                T·K, ``kept`` = the choices within capacity,
+                                ``slots`` = E·cap; ``choices − kept`` are the
+                                dropped choices)
+  ``moe.experts``      compute  device span inside ``moe.dispatch``: the
+                                expert bmms
+  ===================  =======  ==============================================
+
+On CUDA, ``FusedTrainLoop`` also writes ``host_syncs`` into each
+``pipeline.compute`` span's args while the tracer is enabled: the syncs
+torch's sync debug mode reports for the step on the trainer's thread (a
+lower bound: torch says the mode does not yet see every synchronizing
+operation).
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
+import sys
 import threading
 import time
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch.core.stats import percentiles
 
@@ -44,21 +96,51 @@ COMPUTE_CAT = "compute"
 
 
 class Span:
-    """One completed timed region (seconds, monotonic origin)."""
+    """One completed timed region (seconds, monotonic origin).
 
-    __slots__ = ("name", "cat", "t0", "dur", "tid", "args")
+    ``id`` / ``parent`` link it to the span that was open when it began
+    (``parent`` None: a root). ``device_s`` is the device time between its
+    CUDA events, None for a host span or where there is no CUDA."""
+
+    __slots__ = ("name", "cat", "t0", "dur", "tid", "args", "id", "parent",
+                 "device_s", "_events", "_tensors")
 
     def __init__(self, name: str, cat: str, t0: float, dur: float, tid: int,
-                 args: Optional[dict]):
+                 args: Optional[dict], id: int = 0,
+                 parent: Optional[int] = None, events: Optional[Tuple] = None):
         self.name = name
         self.cat = cat
         self.t0 = t0
         self.dur = dur
         self.tid = tid
         self.args = args
+        self.id = id
+        self.parent = parent
+        self.device_s: Optional[float] = None
+        self._events = events                  # (start, end) CUDA events
+        self._tensors = bool(args) and any(_is_tensor(v) for v in args.values())
+
+    def _resolve(self) -> None:
+        """Read the device: the events' elapsed time, and 0-d tensor args as
+        Python numbers (this waits for the events, so only at read time)."""
+        if self._events is not None:
+            start, end = self._events
+            end.synchronize()
+            self.device_s = start.elapsed_time(end) / 1e3
+            self._events = None
+        if self._tensors:
+            self.args = {k: v.item() if _is_tensor(v) else v
+                         for k, v in self.args.items()}
+            self._tensors = False
 
     def __repr__(self) -> str:
         return f"Span({self.name!r}, cat={self.cat!r}, dur={self.dur:.6f})"
+
+
+def _is_tensor(v) -> bool:
+    """A 0-d tensor arg (duck-typed: no torch import here)."""
+    return getattr(v, "ndim", None) == 0 and hasattr(v, "item") \
+        and hasattr(v, "device")
 
 
 class _NullSpan:
@@ -72,6 +154,9 @@ class _NullSpan:
     def __exit__(self, *exc):
         return False
 
+    def annotate(self, **args) -> None:
+        pass
+
 
 _NULL_SPAN = _NullSpan()
 
@@ -80,22 +165,50 @@ class _LiveSpan:
     """Context manager that records one span on exit (exceptions included —
     a failed cput is exactly the span you want to see)."""
 
-    __slots__ = ("_tracer", "name", "cat", "args", "t0")
+    __slots__ = ("_tracer", "name", "cat", "args", "t0", "id", "parent",
+                 "device", "_start", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str,
-                 args: Optional[dict]):
+                 args: Optional[dict], device: bool = False):
         self._tracer = tracer
         self.name = name
         self.cat = cat
         self.args = args
+        self.device = device
+        self._start = self._range = None
+
+    def annotate(self, **args) -> None:
+        """Add args known only inside the span (a byte count, a device
+        tensor to read later)."""
+        if self.args is None:
+            self.args = {}
+        self.args.update(args)
 
     def __enter__(self):
+        tracer = self._tracer
+        tracer._open(self)
+        if self.device:
+            import torch
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+            if tracer._cuda(torch):
+                self._start = torch.cuda.Event(enable_timing=True)
+                self._start.record()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        self._tracer._record(self.name, self.cat, self.t0,
-                             time.perf_counter() - self.t0, self.args)
+        dur = time.perf_counter() - self.t0
+        events = None
+        if self._start is not None:
+            import torch
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            events = (self._start, end)
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        self._tracer._close(self)
+        self._tracer._record(self, dur, events)
         return False
 
 
@@ -107,6 +220,10 @@ class Tracer:
         self._ring: "deque[Span]" = deque(maxlen=capacity)
         self._lock = threading.Lock()
         self._tids: Dict[int, int] = {}  # thread ident -> small stable id
+        self._ids = itertools.count(1)
+        self._local = threading.local()  # .stack: this thread's open spans
+        self._open_device: List[_LiveSpan] = []  # open device spans, in order
+        self._has_cuda: Optional[bool] = None
 
     # -- recording ---------------------------------------------------------
     def enable(self) -> "Tracer":
@@ -121,25 +238,72 @@ class Tracer:
         with self._lock:
             self._ring.clear()
 
-    def span(self, name: str, cat: str = "", **args):
-        """Context manager timing one region. Free when disabled."""
+    def span(self, name: str, cat: str = "", device: bool = False, **args):
+        """Context manager timing one region (``device``: its device time
+        too). Free when disabled."""
         if not self.enabled:
             return _NULL_SPAN
-        return _LiveSpan(self, name, cat, args or None)
+        return _LiveSpan(self, name, cat, args or None, device)
 
-    def _record(self, name: str, cat: str, t0: float, dur: float,
-                args: Optional[dict]) -> None:
+    def _cuda(self, torch) -> bool:
+        if self._has_cuda is None:
+            self._has_cuda = torch.cuda.is_available()
+        return self._has_cuda
+
+    def _open(self, span: _LiveSpan) -> None:
+        """Give a span opening on this thread its id and parent."""
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        span.parent = stack[-1].id if stack else self._adoptive_parent()
+        span.id = next(self._ids)
+        stack.append(span)
+        if span.device:
+            with self._lock:
+                self._open_device.append(span)
+
+    def _adoptive_parent(self) -> Optional[int]:
+        """The parent of a span opening with nothing open on its thread: on
+        a thread running an autograd backward, the innermost device span
+        open elsewhere (the backward's caller blocks inside it)."""
+        torch = sys.modules.get("torch")
+        if torch is None or torch._C._current_graph_task_id() == -1:
+            return None
+        with self._lock:
+            return self._open_device[-1].id if self._open_device else None
+
+    def _close(self, span: _LiveSpan) -> None:
+        stack = getattr(self._local, "stack", [])
+        if stack and stack[-1] is span:
+            stack.pop()
+        elif span in stack:
+            stack.remove(span)
+        if span.device:
+            with self._lock:
+                if span in self._open_device:
+                    self._open_device.remove(span)
+
+    def _record(self, span: _LiveSpan, dur: float,
+                events: Optional[Tuple]) -> None:
         ident = threading.get_ident()
         with self._lock:
             tid = self._tids.get(ident)
             if tid is None:
                 tid = self._tids[ident] = len(self._tids)
-            self._ring.append(Span(name, cat, t0, dur, tid, args))
+            self._ring.append(Span(span.name, span.cat, span.t0, dur, tid,
+                                   span.args, span.id, span.parent,
+                                   events=events))
 
     # -- read surface ------------------------------------------------------
     def spans(self) -> List[Span]:
+        """The recorded spans, oldest first, their device times and device
+        args read (this waits for the device where one is pending)."""
         with self._lock:
-            return list(self._ring)
+            out = list(self._ring)
+        for s in out:
+            if s._events is not None or s._tensors:
+                s._resolve()
+        return out
 
     def __len__(self) -> int:
         with self._lock:
@@ -162,6 +326,8 @@ class Tracer:
             }
             if s.args:
                 ev["args"] = s.args
+            if s.device_s is not None:
+                ev["args"] = {**(s.args or {}), "device_ms": s.device_s * 1e3}
             events.append(ev)
         return events
 
@@ -177,19 +343,22 @@ class Tracer:
         """Plain-text attribution report: where did the wall time go?
 
         Groups spans by name (count, total, p50/p95) and closes with the
-        data-plane-wait vs compute split. Concurrent spans are summed per
-        span, not deduplicated — the report attributes *work*, not
-        wall-clock occupancy.
+        data-plane-wait vs compute split. The split counts each span's self
+        time (its duration less the part its child spans cover), so a span
+        nested in another (``train.*`` in ``pipeline.compute``,
+        ``consumer.get`` in ``consumer.fetch``) is counted once. Concurrent
+        spans are summed per span, not deduplicated — the report attributes
+        *work*, not wall-clock occupancy.
         """
         spans = self.spans()
         if not spans:
             return "no spans recorded (is tracing enabled?)\n"
         by_name: Dict[str, List[Span]] = {}
         by_cat: Dict[str, float] = {}
-        for s in spans:
+        for s, self_s in zip(spans, self_times(spans)):
             by_name.setdefault(s.name, []).append(s)
             cat = s.cat or "default"
-            by_cat[cat] = by_cat.get(cat, 0.0) + s.dur
+            by_cat[cat] = by_cat.get(cat, 0.0) + self_s
         lines = [f"{'span':<28} {'count':>7} {'total_ms':>10} "
                  f"{'p50_ms':>9} {'p95_ms':>9}"]
         for name in sorted(by_name,
@@ -212,6 +381,26 @@ class Tracer:
         return "\n".join(lines) + "\n"
 
 
+def self_times(spans: List[Span]) -> List[float]:
+    """Each span's duration less the union of its children's intervals
+    clipped to its own (children found by ``parent``)."""
+    kids: Dict[int, List[Tuple[float, float]]] = {}
+    for s in spans:
+        if s.parent is not None:
+            kids.setdefault(s.parent, []).append((s.t0, s.t0 + s.dur))
+    out = []
+    for s in spans:
+        lo, hi = s.t0, s.t0 + s.dur
+        covered, end = 0.0, lo
+        for a, b in sorted(kids.get(s.id, ())):
+            a, b = max(a, end), min(b, hi)
+            if b > a:
+                covered += b - a
+                end = b
+        out.append(s.dur - covered)
+    return out
+
+
 #: process-wide tracer every instrumented component uses
 TRACER = Tracer()
 
@@ -228,8 +417,9 @@ def disable_tracing() -> Tracer:
     return TRACER.disable()
 
 
-def trace_span(name: str, cat: str = "", **args):
-    """Module-level shortcut: ``with trace_span("commit.cput", cat="commit")``."""
+def trace_span(name: str, cat: str = "", device: bool = False, **args):
+    """Module-level shortcut: ``with trace_span("commit.cput", cat="commit")``
+    (``device=True``: the region's device time too)."""
     if not TRACER.enabled:
         return _NULL_SPAN
-    return _LiveSpan(TRACER, name, cat, args or None)
+    return _LiveSpan(TRACER, name, cat, args or None, device)

@@ -55,8 +55,10 @@ global batches — exactly-once at the token level.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
+import warnings
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -70,7 +72,7 @@ from repro_torch.data.packing import (GlobalBatchPacker, PackedBatch,
 from repro_torch.dataplane.types import Topology, UnsupportedOperation
 from repro_torch.models.common import resolve_device, tree_leaves
 from repro_torch.obs.registry import COUNTER, GAUGE, StatsView
-from repro_torch.obs.tracer import trace_span
+from repro_torch.obs.tracer import TRACER, trace_span
 
 __all__ = ["FusedTrainLoop", "FusedReport", "StepTiming", "PipelineStats",
            "ReaderFanInSource", "PackingTokenSource"]
@@ -371,6 +373,48 @@ class FusedReport:
 # The fused loop
 # ---------------------------------------------------------------------------
 
+class _HostSyncCount:
+    """Counts the device-to-host syncs this thread makes inside the block:
+    torch's sync debug mode at "warn" warns at each one (``.item()``, a
+    ``float()`` of a device tensor, ``nonzero``, a boolean index, a
+    blocking copy; the autograd engine hands its threads' warnings to the
+    caller). The count lands in ``span``'s ``host_syncs``; the previous mode
+    and warning filters are restored after.
+
+    The mode, the filters and ``warnings.showwarning`` are process-wide:
+    a sync warning from another thread (staging, prefetch) is dropped, as
+    it is with the mode off. The count is a lower bound: torch says the mode
+    does not yet detect every synchronizing operation."""
+
+    MESSAGE = "called a synchronizing CUDA operation"
+
+    def __init__(self, span):
+        self.span, self.n = span, 0
+
+    def __enter__(self):
+        self._ident = threading.get_ident()
+        self._filters = warnings.catch_warnings()
+        self._filters.__enter__()
+        warnings.filterwarnings("always", message=f".*{self.MESSAGE}")
+        show = warnings.showwarning
+
+        def count(message, category, filename, lineno, file=None, line=None):
+            if self.MESSAGE not in str(message):
+                show(message, category, filename, lineno, file, line)
+            elif threading.get_ident() == self._ident:
+                self.n += 1
+        warnings.showwarning = count
+        self._mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(self._mode)
+        self._filters.__exit__(*exc)
+        self.span.annotate(host_syncs=self.n)
+        return False
+
+
 @dataclass
 class _Staged:
     """One ring entry: a device-resident batch plus its replay cursor."""
@@ -630,7 +674,9 @@ class FusedTrainLoop:
                 stream.wait_event(entry.event)
                 entry.device_tokens.record_stream(stream)
             with trace_span("pipeline.compute", cat="compute",
-                            step=self.consumed):
+                            step=self.consumed) as span, \
+                    _HostSyncCount(span) if TRACER.enabled and \
+                    self.device.type == "cuda" else contextlib.nullcontext():
                 tc = time.perf_counter()
                 self.params, self.opt_state, metrics = self.step_fn(
                     self.params, self.opt_state,

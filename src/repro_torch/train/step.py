@@ -9,6 +9,12 @@ metrics):
     microbatch the grads are only cast to fp32);
   * the AdamW update runs once on the accumulated grads, in place.
 
+While the tracer is enabled the step records device spans (category
+``compute``): ``train.step`` over the call, and inside it
+``train.forward`` (``loss_fn``), ``train.backward`` (the grads, their cast
+to fp32 or their accumulation) for each microbatch, then
+``train.optimizer`` (``adamw_update``, the global norm included).
+
 The step runs where the parameters and the batch lie: on the card every
 RMSNorm, attention and WKV6 forward launches its kernel (K2, K1, K4), and
 their backward is the reference's recompute-and-differentiate rule.
@@ -28,6 +34,7 @@ import torch
 from repro_torch.models import model as M
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.tracer import trace_span
 from repro_torch.train.optimizer import OptimizerConfig, adamw_update
 
 
@@ -80,14 +87,21 @@ def _microbatch(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
         stride=torch.empty(shape, device="meta").stride())
 
 
+def _forward(cfg: ModelConfig, params, batch: Dict):
+    """(leaves requiring grad, loss, loss metrics) of ``loss_fn`` at
+    ``params``; the parameters' own ``requires_grad`` is left alone."""
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, metrics = M.loss_fn(cfg, live, batch)
+    return tree_leaves(live), loss, metrics
+
+
 def loss_and_grads(cfg: ModelConfig, params, batch: Dict
                    ) -> Tuple[torch.Tensor, Dict, Dict]:
     """(loss, loss metrics, grads tree) of ``loss_fn`` at ``params``, as
     ``jax.value_and_grad(loss_fn, has_aux=True)``; the parameters' own
     ``requires_grad`` is left alone."""
-    live = tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss, metrics = M.loss_fn(cfg, live, batch)
-    grads = torch.autograd.grad(loss, tree_leaves(live))
+    leaves, loss, metrics = _forward(cfg, params, batch)
+    grads = torch.autograd.grad(loss, leaves)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_unflatten(params, grads))
 
@@ -106,30 +120,47 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
         if GB % n_micro:
             raise ValueError(f"global batch {GB} does not split into "
                              f"{n_micro} microbatches")
-        micro = [{k: _microbatch(v, i, n_micro) for k, v in batch.items()}
-                 for i in range(n_micro)]
+        with trace_span("train.step", cat="compute", device=True):
+            micro = [{k: _microbatch(v, i, n_micro) for k, v in batch.items()}
+                     for i in range(n_micro)]
 
-        if n_micro > 1:
-            grads = tree_map(lambda p: torch.zeros_like(p, dtype=acc_dt),
-                             params)
-            loss_sum = aux_sum = 0.0
-            for mb in micro:
-                loss, metrics, g_mb = loss_and_grads(cfg, params, mb)
-                for acc, g in zip(tree_leaves(grads), tree_leaves(g_mb)):
-                    acc.add_(g.to(acc_dt))
-                del g_mb
-                loss_sum = loss_sum + loss
-                aux_sum = aux_sum + metrics["aux_loss"]
-            for acc in tree_leaves(grads):
-                acc.div_(n_micro)
-        else:
-            loss_sum, metrics, grads = loss_and_grads(cfg, params, micro[0])
-            grads = tree_map(lambda g: g.float(), grads)
-            aux_sum = metrics["aux_loss"]
+            if n_micro > 1:
+                grads = None
+                loss_sum = aux_sum = 0.0
+                for mb in micro:
+                    with trace_span("train.forward", cat="compute", device=True):
+                        leaves, loss, metrics = _forward(cfg, params, mb)
+                    with trace_span("train.backward", cat="compute",
+                                    device=True):
+                        g_mb = torch.autograd.grad(loss, leaves)
+                        if grads is None:
+                            grads = tree_map(
+                                lambda p: torch.zeros_like(p, dtype=acc_dt),
+                                params)
+                        for acc, g in zip(tree_leaves(grads), g_mb):
+                            acc.add_(g.to(acc_dt))
+                        del g_mb
+                        if mb is micro[-1]:
+                            for acc in tree_leaves(grads):
+                                acc.div_(n_micro)
+                    loss_sum = loss_sum + loss.detach()
+                    aux_sum = aux_sum + metrics["aux_loss"].detach()
+            else:
+                with trace_span("train.forward", cat="compute", device=True):
+                    leaves, loss_sum, metrics = _forward(cfg, params, micro[0])
+                with trace_span("train.backward", cat="compute", device=True):
+                    grads = tree_map(
+                        lambda g: g.float(),
+                        tree_unflatten(params, torch.autograd.grad(loss_sum,
+                                                                   leaves)))
+                loss_sum = loss_sum.detach()
+                aux_sum = metrics["aux_loss"].detach()
 
-        params, opt_state, om = adamw_update(opt_cfg, params, grads, opt_state)
-        metrics = {"loss": loss_sum / n_micro, "aux_loss": aux_sum / n_micro,
-                   **om}
+            with trace_span("train.optimizer", cat="compute", device=True):
+                params, opt_state, om = adamw_update(opt_cfg, params, grads,
+                                                     opt_state)
+            metrics = {"loss": loss_sum / n_micro,
+                       "aux_loss": aux_sum / n_micro, **om}
         return params, opt_state, metrics
 
     return train_step

@@ -823,6 +823,90 @@ def test_train_path_launches_the_kernels_and_matches_the_cpu(cuda, family,
     _assert_close(out["cuda"][0].cpu(), out["cpu"][0])
 
 
+def test_train_step_device_spans_on_the_card(cuda):
+    """Two remat train steps of qwen3-vl-30b-a3b's layout at a narrow width
+    under the enabled tracer: every phase and MoE span has device time, the
+    phases sum to no more than the step's, and each MoE span of the
+    recompute, opened on the autograd engine's own thread, hangs under the
+    trainer's ``train.backward`` inside its interval."""
+    from repro_torch.obs.tracer import TRACER, disable_tracing, enable_tracing
+    from repro_torch.train import (OptimizerConfig, StepConfig,
+                                   init_opt_state, make_train_step)
+    cfg = _QWEN3_VL_NARROW.replace(remat=True)
+    params = init_params(param_specs(cfg), seed=0, device="cuda")
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, OptimizerConfig(), StepConfig(frontend_prefix=8))
+    batch = {"tokens": (torch.arange(2 * 24, device=cuda).reshape(2, 24) * 7
+                        % cfg.vocab_size).int(),
+             "frontend_embeds": 0.5 * torch.randn((2, 8, cfg.d_model),
+                                                  device=cuda)}
+    step(params, opt, batch)                       # warm up
+    TRACER.clear()
+    enable_tracing()
+    try:
+        for _ in range(2):
+            params, opt, _m = step(params, opt, batch)
+    finally:
+        disable_tracing()
+    spans = TRACER.spans()
+    TRACER.clear()
+    by_id = {s.id: s for s in spans}
+    steps = [s for s in spans if s.name == "train.step"]
+    assert len(steps) == 2
+    for s in spans:
+        assert s.device_s is not None and s.device_s > 0, s
+    for st in steps:
+        kids = [s for s in spans if s.parent == st.id]
+        assert sorted(s.name for s in kids) == \
+            ["train.backward", "train.forward", "train.optimizer"]
+        assert sum(s.device_s for s in kids) <= st.device_s * 1.001
+    dispatch = [s for s in spans if s.name == "moe.dispatch"]
+    assert len(dispatch) == 2 * 2 * cfg.num_layers   # forward + recompute
+    recompute = [s for s in dispatch if by_id[s.parent].name == "train.backward"]
+    assert len(recompute) == 2 * cfg.num_layers
+    for s in recompute:
+        bwd = by_id[s.parent]
+        assert s.tid != bwd.tid       # the engine's device thread
+        assert bwd.t0 <= s.t0 and s.t0 + s.dur <= bwd.t0 + bwd.dur
+    T = 2 * (24 + 8)
+    for s in dispatch:
+        assert s.args["choices"] == T * cfg.moe_top_k
+        assert 0 < s.args["kept"] <= s.args["choices"]
+        assert [x.name for x in spans if x.parent == s.id] == ["moe.experts"]
+
+
+def _syncing_step(params, opt_state, batch):
+    """One explicit host sync (``.item()``) before the loop's loss read."""
+    total = batch["tokens"].long().sum()
+    if total.item() < 0:
+        raise AssertionError("token ids are never negative")
+    return params, opt_state, {"loss": total % 1000003}
+
+
+def test_fused_loop_counts_the_host_syncs_of_a_step(cuda):
+    """With the tracer on, each ``pipeline.compute`` span carries
+    ``host_syncs``: the step's ``.item()`` and the loop's loss read; the
+    sync debug mode is back where it was after."""
+    from repro_torch.obs.tracer import TRACER, disable_tracing, enable_tracing
+    from repro_torch.train.pipeline import FusedTrainLoop
+    mode = torch.cuda.get_sync_debug_mode()
+    TRACER.clear()
+    with FusedTrainLoop(_InstantSource((4, 256)), _syncing_step,
+                        {"w": torch.zeros(4, device=cuda)}, {}, depth=2,
+                        timeout_s=30.0) as loop:
+        loop.run(2)
+        enable_tracing()
+        try:
+            loop.run(3)
+        finally:
+            disable_tracing()
+    counts = [s.args["host_syncs"] for s in TRACER.spans()
+              if s.name == "pipeline.compute"]
+    TRACER.clear()
+    assert counts == [2, 2, 2]
+    assert torch.cuda.get_sync_debug_mode() == mode
+
+
 # ---------------------------------------------------------------------------
 # The fused loop's staging on the card
 # ---------------------------------------------------------------------------
