@@ -49,7 +49,13 @@ Phases, each of which raises (exit code != 0) on failure:
    each launch), one PyTorch library call of the same function as a
    yardstick (never used by the port; WKV6 has none), and the least time the card could
    take (bytes over 3.35 TB/s, operations over the peak rate for their
-   type).
+   type). K5, AdamW, in fp32 over the leaf lists of the benchmark's
+   training cuts (granite-8b at 8 layers, qwen3-vl-30b-a3b at 4): a step's
+   device time beside its bound (32 B a parameter) and the plain loop's;
+   at granite's list bit-identical to the plain loop at K5's clip scale,
+   one ulp more scale on one leaf the control; then one bf16 leaf of
+   2^31 + 5 elements bit for bit. No library call computes the clipped
+   update.
 4. Serving at full width: granite-8b (36 layers, d_model 4096) with random
    weights from a seeded torch generator, cast once to bf16, serves 8
    requests of 1000-token prompts, 32 new tokens each, through
@@ -135,7 +141,8 @@ Phases, each of which raises (exit code != 0) on failure:
    card's name and power limit: the state's bytes, the host's MemAvailable,
    upload seconds and GB/s, commit ms, resume + restore seconds and GB/s,
    the wall from resume to the end of the first resumed step, peak device
-   memory, launches (33 / 16 / 0 a step) and the phase's seconds.
+   memory, launches (K2 / K1 / K3 / K5: 33 / 16 / 0 / 3 a step) and the
+   phase's seconds.
 
 11. Failure isolation and a brownout on the cut of phase 9 (depth 2, 12
    steps a run, one state): (a) the colocated pool dies after step 3
@@ -198,8 +205,8 @@ Phases, each of which raises (exit code != 0) on failure:
    power limit: tokens/s at the median step, the split, the derive worker's
    TGBs, uploads and hits before and after the kill, the compactor's cycle,
    the checkpoint's upload and commit, resume + restore, each CLI
-   command's ms, peak memory, launches (33 / 16 a step) and the phase's
-   seconds.
+   command's ms, peak memory, launches (K2 / K1 / K5: 33 / 16 / 3 a step)
+   and the phase's seconds.
 
 13. The chaos harness and the operator CLI's entry points, host code that
    launches no kernel, as subprocesses from the repository root with
@@ -516,7 +523,8 @@ VLM_PREFIX = 128
 DRYRUN_OUT = ROOT / "build" / "dryrun"
 # the forward kernels' names as the profiler lists them
 KERNEL_SYMBOLS = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "fa_fwd_kernel",
-                  "decode_attention": "decode_kernel", "wkv6": "wkv6_kernel"}
+                  "decode_attention": "decode_kernel", "wkv6": "wkv6_kernel",
+                  "adamw": "adamw_"}
 
 
 def log(*a):
@@ -1070,8 +1078,175 @@ def kernel_wkv6(torch, F, flush, randn, entries):
                           rtol=WKV_STATE_TOL, c=WKV_STATE_TOL)
 
 
+def kernel_adamw(torch, F, flush, randn, entries):
+    """K5 AdamW over the fp32 leaf lists of the benchmark's two training
+    cuts, granite-8b (8 layers) and qwen3-vl-30b-a3b (4 layers), with the
+    plain loop in the same run: a step's device time (every launch: pass
+    1, the scale, pass 2) beside its bound, 32 B a parameter (fp32 p, m and
+    v read and written, g read twice), and the plain loop's. At both lists
+    pass 1 is held to the fp64 norm of the gradients (1e-6 relative) and
+    the clip scale to the plain rule's at that norm (2 ulps), and the
+    control, K5 with one leaf left out of its list, must miss the norm. At
+    granite's list p, m and v must equal the plain loop's bit for bit at
+    K5's clip scale (the control: one ulp more scale on one leaf must not);
+    the qwen3 list holds no second copy beside its 49.8 GB. Then one bf16
+    leaf of 2^31 + 5 elements (64-bit offsets) bit for bit. The library
+    yardstick, which the port never calls: ``torch._foreach_norm`` and
+    ``torch._fused_adamw_`` with the clip passed as ``grad_scale``."""
+    import math
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import common as kcommon
+    from repro_torch.kernels.adamw.ops import adamw_fused, counts, launch_count
+    from repro_torch.models import param_specs
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.optimizer import (PIECE, OptimizerConfig, adamw_plain,
+                                             clip_scale, decays, global_norm, lr_at)
+
+    cfg = OptimizerConfig(**TRAIN_OPT)
+    t = torch.tensor(1.0, device="cuda")
+    lr, bc1, bc2 = (lr_at(cfg, torch.zeros((), dtype=torch.int32, device="cuda")),
+                    1.0 - torch.pow(cfg.b1, t), 1.0 - torch.pow(cfg.b2, t))
+    hyper = dict(b1=cfg.b1, b2=cfg.b2, eps=cfg.eps, weight_decay=cfg.weight_decay,
+                 clip_norm=cfg.clip_norm)
+    norm_rtol, scale_ulps = 1e-6, 2
+
+    def state(shapes, dtype=torch.float32):
+        ps = [randn(*s, dtype=torch.float32).mul_(0.02).to(dtype) for s in shapes]
+        gs = [randn(*s, dtype=dtype) for s in shapes]
+        ms = [randn(*s, dtype=torch.float32).mul_(1e-3).to(dtype) for s in shapes]
+        vs = [randn(*s, dtype=torch.float32).square_().mul_(1e-6).to(dtype) for s in shapes]
+        return ps, gs, ms, vs
+
+    def k5(ps, gs, ms, vs):
+        return adamw_fused(ps, gs, ms, vs, [decays(cfg, p) for p in ps], lr, bc1, bc2,
+                           **hyper)
+
+    def plain(ps, gs, ms, vs, scale):
+        adamw_plain(cfg, list(zip(ps, gs, ms, vs)), scale, lr, bc1, bc2)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def library(ps, gs, ms, vs, steps, lr_f):
+        # two library launches a decay group: the norm of each leaf, then
+        # the update, which divides g by grad_scale (and writes it back)
+        inv = torch.clamp(torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+                          / cfg.clip_norm, min=1.0)
+        for wd, want in ((cfg.weight_decay, True), (0.0, False)):
+            idx = [i for i, p in enumerate(ps) if decays(cfg, p) == want]
+            torch._fused_adamw_(*([x[i] for i in idx] for x in (ps, gs, ms, vs)), [],
+                                [steps[i] for i in idx], lr=lr_f, beta1=cfg.b1,
+                                beta2=cfg.b2, weight_decay=wd, eps=cfg.eps, amsgrad=False,
+                                maximize=False, grad_scale=inv, found_inf=None)
+
+    def check_norm(label, shapes, n, ps, gs, ms, vs, gnorm, scale):
+        """Pass 1 against the fp64 norm, the scale against the plain rule's
+        at it, and the control; raises where one fails."""
+        want = torch.stack([c.double().square().sum() for g in gs
+                            for c in g.view(-1).split(PIECE)]).sum().sqrt()
+        w = float(want)
+        rel = abs(float(gnorm) - w) / w
+        want_scale = clip_scale(cfg, want.float())
+        ulp = torch.nextafter(want_scale, torch.tensor(2.0, device="cuda")) - want_scale
+        ulps = float((scale - want_scale).abs() / ulp)
+        plain_rel = abs(float(global_norm(dict(enumerate(gs)))) - w) / w
+        k = min((i for i, sh in enumerate(shapes) if math.prod(sh) >= 1e-4 * n),
+                key=lambda i: math.prod(shapes[i]))
+        keep = [i for i in range(len(shapes)) if i != k]
+        ctl_norm, _ = k5(*([x[i] for i in keep] for x in (ps, gs, ms, vs)))
+        ctl_rel = abs(float(ctl_norm) - w) / w
+        line = (f"adamw {label}: grad_norm {float(gnorm):.9e}, fp64 {w:.9e} (rel "
+                f"{rel:.3e}, limit {norm_rtol:g}; the plain fp32 norm's rel {plain_rel:.3e}); "
+                f"scale {float(scale):.9e}, the plain rule's at the fp64 norm "
+                f"{float(want_scale):.9e} ({ulps:g} ulps, limit {scale_ulps}); control "
+                f"(leaf {k} {shapes[k]} left out): rel {ctl_rel:.3e}, "
+                f"{'refused' if ctl_rel > norm_rtol else 'NOT refused'}")
+        log(line)
+        if rel > norm_rtol or ulps > scale_ulps or ctl_rel <= norm_rtol:
+            raise AssertionError(line)
+        return dict(grad_norm=float(gnorm), grad_norm_fp64=w, grad_norm_rel=rel,
+                    plain_norm_rel=plain_rel, scale_ulps=ulps, control_rel=ctl_rel)
+
+    for label, name, layers in (("granite-8b", "granite_8b", GRANITE_TRAIN_LAYERS),
+                                ("qwen3-vl-30b-a3b", "qwen3_vl_30b_a3b", VL_TRAIN_LAYERS)):
+        shapes = [tuple(sp.shape) for sp in
+                  tree_leaves(param_specs(get_config(name).replace(num_layers=layers)))]
+        numels = [math.prod(sh) for sh in shapes]
+        n = sum(numels)
+        ps, gs, ms, vs = state(shapes)
+        line = f"adamw {label} ({layers} layers): {len(shapes)} fp32 leaves, {n} parameters"
+        e = {}
+        if label == "granite-8b":
+            twin = [[x.clone() for x in xs] for xs in (ps, ms, vs)]
+            k = min(range(len(shapes)), key=lambda i: (len(shapes[i]) < 2, ps[i].numel()))
+            ctl = [x[k].clone() for x in (ps, ms, vs)]
+        kcommon.reset_launches()
+        tabled = counts["elems"]
+        gnorm, scale = k5(ps, gs, ms, vs)
+        launched, tabled = kcommon.launches["adamw"], counts["elems"] - tabled
+        if launched != launch_count([numels]) or tabled != n:
+            raise AssertionError(f"adamw {label}: launches {launched}, elements "
+                                 f"tabled {tabled} of {n}")
+        line += f"; launches a step {launched}, elements tabled {tabled}"
+        e.update(launches_per_step=launched)
+        if label == "granite-8b":
+            plain(twin[0], gs, twin[1], twin[2], scale)
+            ok = same(ps + ms + vs, twin[0] + twin[1] + twin[2])
+            plain(ctl[:1], gs[k:k + 1], ctl[1:2], ctl[2:],
+                  torch.nextafter(scale, torch.tensor(2.0, device="cuda")))
+            refused = not same([ps[k], ms[k], vs[k]], ctl)
+            if not ok or not refused:
+                raise AssertionError(f"adamw {label}: bit-identical {ok}, control refused "
+                                     f"{refused}")
+            line += (f"; p, m and v bit-identical to the plain loop at K5's scale; "
+                     f"control (one ulp more scale on leaf {k} {shapes[k]}) refused")
+            e.update(bit_identical=ok)
+            del twin, ctl
+        e.update(check_norm(label, shapes, n, ps, gs, ms, vs, gnorm, scale))
+        ms_k5 = time_ms(torch, lambda: k5(ps, gs, ms, vs), flush, 10)
+        ms_plain = time_ms(torch, lambda: plain(ps, gs, ms, vs, scale), flush, 3, warmup=1)
+        steps = [torch.ones((), device="cuda") for _ in ps]
+        lr_f = float(lr)
+        ms_lib = time_ms(torch, lambda: library(ps, gs, ms, vs, steps, lr_f), flush, 10)
+        b_ms, b_by = bound(32.0 * n, 0.0, FP32_FLOPS)
+        line += (f"  kernel {ms_k5:.4f} ms ({32.0 * n / ms_k5 / 1e9:.2f} TB/s)  plain "
+                 f"{ms_plain:.4f} ms  library (foreach_norm + _fused_adamw_, never "
+                 f"called by the port) {ms_lib:.4f} ms  bound {b_ms:.4f} ms ({b_by}): "
+                 f"{b_ms / ms_k5:.1%}")
+        log(line)
+        e.update(shape=f"{label} ({layers} layers): {len(shapes)} fp32 leaves, {n} params",
+                 ms=ms_k5, plain_ms=ms_plain, bound_ms=b_ms, bound_by=b_by,
+                 library_ms=ms_lib)
+        if label == "granite-8b":
+            entries["adamw"] = dict(name="adamw", route="cuda",
+                                    source="src/repro_torch/csrc/adamw.cu",
+                                    replaces="none (train/optimizer.py adamw_plain)",
+                                    library="torch._foreach_norm + torch._fused_adamw_ "
+                                            "(a yardstick the port never calls)", **e)
+        else:
+            entries["adamw"]["qwen3_vl"] = e
+        del ps, gs, ms, vs, steps
+        torch.cuda.empty_cache()
+
+    big = (2**31 + 5,)
+    ps, gs, ms, vs = state([big], torch.bfloat16)
+    twin = [[x[0].clone()] for x in (ps, ms, vs)]
+    _gn, scale = k5(ps, gs, ms, vs)
+    plain(twin[0], gs, twin[1], twin[2], scale)
+    ok = same(ps + ms + vs, twin[0] + twin[1] + twin[2])
+    log(f"adamw one bf16 leaf of {big[0]} elements (p, g, m and v bf16): bit-identical to "
+        f"the plain loop {ok}")
+    if not ok:
+        raise AssertionError("adamw: the bf16 leaf over 2^31 elements differs from plain")
+    entries["adamw"]["bf16_leaf_over_2_31_bit_identical"] = ok
+    del ps, gs, ms, vs, twin
+    torch.cuda.empty_cache()
+
+
 KERNEL_PHASES = {"rmsnorm": kernel_rmsnorm, "flash_attention": kernel_flash_attention,
-          "decode_attention": kernel_decode_attention, "wkv6": kernel_wkv6}
+          "decode_attention": kernel_decode_attention, "wkv6": kernel_wkv6,
+          "adamw": kernel_adamw}
 
 
 def serving_weights(torch, cfg):
@@ -1185,7 +1360,7 @@ def dense_launches(cfg, steps):
     prefill, K3 once a layer a step."""
     return {"rmsnorm": (2 * cfg.num_layers + 1) * (1 + steps),
             "flash_attention": cfg.num_layers,
-            "decode_attention": cfg.num_layers * steps, "wkv6": 0}
+            "decode_attention": cfg.num_layers * steps, "wkv6": 0, "adamw": 0}
 
 
 def rwkv_launches(cfg, steps):
@@ -1194,7 +1369,7 @@ def rwkv_launches(cfg, steps):
     (decode steps the recurrence as plain tensor code)."""
     norms = 3 * cfg.num_layers + 1
     return {"rmsnorm": norms * (1 + steps), "flash_attention": 0, "decode_attention": 0,
-            "wkv6": cfg.num_layers}
+            "wkv6": cfg.num_layers, "adamw": 0}
 
 
 def hybrid_launches(cfg, steps):
@@ -1204,7 +1379,7 @@ def hybrid_launches(cfg, steps):
     groups = cfg.num_layers // cfg.attn_every
     norms = 2 * cfg.num_layers + 2 * groups + 1
     return {"rmsnorm": norms * (1 + steps), "flash_attention": groups,
-            "decode_attention": groups * steps, "wkv6": 0}
+            "decode_attention": groups * steps, "wkv6": 0, "adamw": 0}
 
 
 def phase_serve_direct(torch, kcommon, cfg, expected, prefix=0):
@@ -1523,8 +1698,16 @@ def expected_train_launches(cfg):
     the layers, once. The hybrid nests its remat as the reference does: a
     Mamba2 layer inside a group of ``attn_every`` runs forward three times
     (the forward, the group's recompute, its own recompute), the shared
-    block and a tail layer twice."""
-    want = {"rmsnorm": 1, "flash_attention": 0, "decode_attention": 0, "wkv6": 0}
+    block and a tail layer twice. AdamW is K5 over the fp32 leaves: two
+    launches for each table of leaves and one for the clip scale."""
+    import math
+
+    from repro_torch.kernels.adamw.ops import launch_count
+    from repro_torch.models import param_specs
+    from repro_torch.models.common import tree_leaves
+    numels = [math.prod(s.shape) for s in tree_leaves(param_specs(cfg))]
+    want = {"rmsnorm": 1, "flash_attention": 0, "decode_attention": 0, "wkv6": 0,
+            "adamw": launch_count([numels])}
     if cfg.family == "hybrid":
         groups = cfg.num_layers // cfg.attn_every
         tail = cfg.num_layers - groups * cfg.attn_every
@@ -1686,7 +1869,7 @@ def phase_train(torch, kcommon, label, cfg, prefix=0):
     step_ms = start.elapsed_time(end)
     parts = {name: sum(s.elapsed_time(e) for s, e in ev) for name, ev in events.items()}
     parts.update({f"{k} forward kernel": sum(t for t, key in rows if sym in key) / 1e3
-                  for k, sym in KERNEL_SYMBOLS.items() if want[k]})
+                  for k, sym in KERNEL_SYMBOLS.items() if want[k] and k != "adamw"})
     log(f"{label} train step, device time by part (CUDA events around each backward rule "
         f"and AdamW; the profiler's kernel lines for the forward kernels): step {step_ms:.2f} ms; "
         + "; ".join(f"{k} {v:.2f} ms = {v / step_ms:.1%}" for k, v in parts.items()))
@@ -3390,12 +3573,12 @@ def main() -> int:
     if runs(19):
         phase_large(torch, kcommon, paths, args.skip_serving, free, done, smi)
 
-    # launches: each kernel's count on the serving path it was ported for
-    # (granite-8b for K1-K3, rwkv6-3b for K4; their training paths with
-    # --skip-serving, the chosen phase's first path with an --only-* flag),
-    # and each path's count beside it
+    # launches: each kernel's count on the path it was written for
+    # (granite-8b's serving for K1-K3, rwkv6-3b's for K4, granite-8b's
+    # training for K5; the training paths with --skip-serving, the chosen
+    # phase's first path with an --only-* flag), and each path's count
     for kname, e in entries.items():
-        path = "rwkv6-3b" if kname == "wkv6" else "granite-8b"
+        path = {"wkv6": "rwkv6-3b", "adamw": "granite-8b train"}.get(kname, "granite-8b")
         e["launches_path"] = next(p for p in (path, f"{path} train", f"{path} card check",
                                               *paths) if p in paths)
         e["launches"] = paths[e["launches_path"]][kname]
@@ -3658,8 +3841,7 @@ def phase_card_check(torch, kcommon, paths, smi, free):
     paths["granite-8b train card check"] = profiled(
         f"granite-8b train step ({GRANITE_TRAIN_LAYERS} layers)",
         lambda: step(params, opt, batch),
-        {"rmsnorm": 4 * GRANITE_TRAIN_LAYERS + 1, "flash_attention": 2 * GRANITE_TRAIN_LAYERS,
-         "decode_attention": 0, "wkv6": 0})
+        expected_train_launches(cut))
     _out, ms, peak, flops = counted(lambda: step(params, opt, batch))
     compare(f"granite-8b train step ({GRANITE_TRAIN_LAYERS} layers)", flops, cut,
             InputShape("card", TRAIN_SEQ, TRAIN_GB, "train"), ms, peak, microbatches=1)

@@ -11,7 +11,7 @@ seconds. Building happens at first use (or in ``build``), never at import.
 resets it with ``reset_launches`` and reads it afterwards to show that the
 path went through the kernels.
 
-Each kernel's forward is an operator of the ``repro_torch`` library
+Each kernel's forward but K5's is an operator of the ``repro_torch`` library
 (``define_op``): its CPU and CUDA implementation is the wrapper (plain
 version on CPU tensors, the kernel or a raise on CUDA ones), its fake
 implementation gives the output shapes alone, so fake tensors and DTensors
@@ -19,7 +19,10 @@ implementation gives the output shapes alone, so fake tensors and DTensors
 and its FLOPs are registered with ``torch.utils.flop_counter``. The operators are registered
 through ``torch.library.Library`` rather than ``custom_op``: the
 lower-level route costs less host time a call, which the host-bound
-decode step pays at every launch (PERF.md, the kernel table).
+decode step pays at every launch (PERF.md, the kernel table). K5, AdamW
+(``kernels/adamw``), updates its leaves in place and runs only on real CUDA
+tensors: ``train/optimizer.py`` calls its wrapper directly and keeps fake
+tensors, and DTensors over fake or CPU shards, on the plain loop.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from typing import Callable, Dict, Iterable, List
 
 import torch
 
-KERNELS = ("rmsnorm", "flash_attention", "decode_attention", "wkv6")
+KERNELS = ("rmsnorm", "flash_attention", "decode_attention", "wkv6", "adamw")
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"

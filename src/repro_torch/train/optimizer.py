@@ -1,10 +1,18 @@
 """AdamW + schedule + global-norm clipping (port of ``repro.train.optimizer``).
 
 Hand-written, no ``torch.optim``: the update is the JAX one, op for op, in
-fp32. It runs in place under ``torch.no_grad()``, leaf by leaf and over each
-leaf's flat elements in pieces of ``PIECE``, so a stacked leaf's fp32
-temporaries stay a piece in size (rwkv6-3b's ``cm_k`` is 2.9 GB). The
-optimizer state ``{"m", "v", "step"}`` mirrors the parameter tree.
+fp32, in place under ``torch.no_grad()``. The optimizer state ``{"m", "v",
+"step"}`` mirrors the parameter tree.
+
+Two paths, chosen by what ``adamw_update`` is given. Real CUDA tensors take
+K5 (``kernels/adamw``, ``csrc/adamw.cu``): one multi-tensor pass for the
+gradients' norm and one for the update, 32 B of HBM traffic a parameter,
+bit-identical to the plain loop given the same clip scale; what it does not
+take raises, DTensors with shards on the card too. CPU tensors and fake
+tensors (the dry run's), and DTensors over either, take the plain loop
+``adamw_plain``, leaf by leaf and over each leaf's flat elements in pieces
+of ``PIECE``, so a stacked leaf's fp32 temporaries stay a piece in size
+(rwkv6-3b's ``cm_k`` is 2.9 GB).
 
 Decay follows the reference's rule: every stored leaf with ``ndim >= 2``,
 which includes the per-layer norm scales, ``u``, ``w0`` and the token-shift
@@ -18,6 +26,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.kernels.adamw.ops import adamw_fused
+from repro_torch.kernels.common import on_cpu, require
 from repro_torch.models.common import tree_leaves, tree_map
 
 #: elements of a leaf updated at once (fp32 temporaries of 64 MB each)
@@ -86,25 +96,23 @@ def global_norm(tree) -> torch.Tensor:
                           for c in _pieces(leaf)))
 
 
-@torch.no_grad()
-def adamw_update(cfg: OptimizerConfig, params, grads, opt_state
-                 ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
-    """One AdamW step with global-norm clipping. Updates ``params`` and the
-    moments in place and returns (params, new opt_state, {"grad_norm",
-    "lr"}), as the JAX version returns its new trees. No host sync."""
-    step = opt_state["step"]
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0) \
+def clip_scale(cfg: OptimizerConfig, gnorm: torch.Tensor):
+    """min(clip / max(gnorm, 1e-9), 1), or 1.0 where clipping is off."""
+    return torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0) \
         if cfg.clip_norm > 0 else 1.0
-    lr = lr_at(cfg, step)
-    b1, b2 = cfg.b1, cfg.b2
-    t = (step + 1).float()
-    bc1 = 1.0 - torch.pow(b1, t)
-    bc2 = 1.0 - torch.pow(b2, t)
 
-    for p, g, m, v in zip(*(tree_leaves(x) for x in
-                            (params, grads, opt_state["m"], opt_state["v"]))):
-        decay = cfg.weight_decay > 0 and p.dim() >= 2  # the stored leaf's ndim
+
+def decays(cfg: OptimizerConfig, p: torch.Tensor) -> bool:
+    """Whether leaf ``p`` takes weight decay (the reference's rule)."""
+    return cfg.weight_decay > 0 and p.dim() >= 2  # the stored leaf's ndim
+
+
+def adamw_plain(cfg: OptimizerConfig, leaves, scale, lr, bc1, bc2) -> None:
+    """The plain update of each (p, g, m, v) of ``leaves`` in place, with
+    the clip ``scale`` given (a 0-d tensor or 1.0)."""
+    b1, b2 = cfg.b1, cfg.b2
+    for p, g, m, v in leaves:
+        decay = decays(cfg, p)
         for pc, gc, mc, vc in zip(*map(_pieces, (p, g, m, v))):
             gf = gc.float() * scale
             # .float() of an fp32 tensor is the tensor itself: fp32 moments
@@ -118,5 +126,52 @@ def adamw_update(cfg: OptimizerConfig, params, grads, opt_state
             for dst, src in ((mc, mf), (vc, vf), (pc, pf)):
                 if src is not dst:
                     dst.copy_(src)
+
+
+def takes_kernel(tensors) -> bool:
+    """True if K5 updates these: real tensors on one CUDA device. CPU
+    tensors and fake tensors (the dry run's), and DTensors whose shards are
+    either, take the plain loop; a DTensor with real shards on the card and
+    a mix of devices raise."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    shards = [t.to_local() if hasattr(t, "placements") else t for t in tensors]
+    if any(isinstance(t, FakeTensor) for t in shards) \
+            or all(t.device.type != "cuda" for t in shards):
+        return False
+    require(not any(hasattr(t, "placements") for t in tensors),
+            "the adamw kernel does not take DTensors with shards on the card: "
+            "their grads' norm needs the sum of squares of every shard")
+    return not on_cpu(*tensors)
+
+
+def optimizer_counts(params, launched: int, tabled: int) -> Dict[str, int]:
+    """The ``train.optimizer`` span's args, host-known integers: parameter
+    elements updated, those in K5's update tables (``tabled``) and K5's
+    launches."""
+    return {"elems": sum(p.numel() for p in tree_leaves(params)),
+            "kernel_elems": tabled, "launches": launched}
+
+
+@torch.no_grad()
+def adamw_update(cfg: OptimizerConfig, params, grads, opt_state
+                 ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
+    """One AdamW step with global-norm clipping. Updates ``params`` and the
+    moments in place and returns (params, new opt_state, {"grad_norm",
+    "lr"}), as the JAX version returns its new trees. No host sync."""
+    step = opt_state["step"]
+    lr = lr_at(cfg, step)
+    t = (step + 1).float()
+    bc1 = 1.0 - torch.pow(cfg.b1, t)
+    bc2 = 1.0 - torch.pow(cfg.b2, t)
+    leaves = list(zip(*(tree_leaves(x) for x in
+                        (params, grads, opt_state["m"], opt_state["v"]))))
+    if takes_kernel([x for leaf in leaves for x in leaf]):
+        gnorm, _scale = adamw_fused(
+            *zip(*leaves), [decays(cfg, p) for p, *_ in leaves],
+            lr, bc1, bc2, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+            weight_decay=cfg.weight_decay, clip_norm=cfg.clip_norm)
+    else:
+        gnorm = global_norm(grads)
+        adamw_plain(cfg, leaves, clip_scale(cfg, gnorm), lr, bc1, bc2)
     new_state = {"m": opt_state["m"], "v": opt_state["v"], "step": step + 1}
     return params, new_state, {"grad_norm": gnorm, "lr": lr}

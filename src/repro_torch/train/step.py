@@ -13,11 +13,14 @@ While the tracer is enabled the step records device spans (category
 ``compute``): ``train.step`` over the call, and inside it
 ``train.forward`` (``loss_fn``), ``train.backward`` (the grads, their cast
 to fp32 or their accumulation) for each microbatch, then
-``train.optimizer`` (``adamw_update``, the global norm included).
+``train.optimizer`` (``adamw_update``, the global norm included; its args
+``elems``, ``kernel_elems`` and ``launches`` count the parameter elements
+updated, those in K5's update tables and K5's launches).
 
 The step runs where the parameters and the batch lie: on the card every
-RMSNorm, attention and WKV6 forward launches its kernel (K2, K1, K4), and
-their backward is the reference's recompute-and-differentiate rule.
+RMSNorm, attention and WKV6 forward launches its kernel (K2, K1, K4), their
+backward is the reference's recompute-and-differentiate rule, and AdamW is
+K5.
 
 The same step runs over DTensors in the dry run (``launch/dryrun.py``): a
 DTensor batch sharded on its rows gives each device the same share of every
@@ -31,11 +34,14 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.kernels.adamw.ops import counts as adamw_counts
+from repro_torch.kernels.common import launches
 from repro_torch.models import model as M
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
 from repro_torch.models.config import ModelConfig
-from repro_torch.obs.tracer import trace_span
-from repro_torch.train.optimizer import OptimizerConfig, adamw_update
+from repro_torch.obs.tracer import TRACER, trace_span
+from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
+                                         optimizer_counts)
 
 
 @dataclass(frozen=True)
@@ -156,9 +162,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
                 loss_sum = loss_sum.detach()
                 aux_sum = metrics["aux_loss"].detach()
 
-            with trace_span("train.optimizer", cat="compute", device=True):
+            with trace_span("train.optimizer", cat="compute",
+                            device=True) as span:
+                launched, tabled = launches["adamw"], adamw_counts["elems"]
                 params, opt_state, om = adamw_update(opt_cfg, params, grads,
                                                      opt_state)
+                if TRACER.enabled:
+                    span.annotate(**optimizer_counts(
+                        params, launches["adamw"] - launched,
+                        adamw_counts["elems"] - tabled))
             metrics = {"loss": loss_sum / n_micro,
                        "aux_loss": aux_sum / n_micro, **om}
         return params, opt_state, metrics

@@ -24,8 +24,14 @@ version at the kernel limits above. Its backward recomputes the plain version
 from the saved inputs and differentiates it, which is what autograd through
 the plain version does on the same inputs: the kernel's forward output never
 enters the gradients, so the two are held bit-identical (tolerance zero).
+
+AdamW. K5 computes the plain loop's per-element arithmetic in its order
+with round-to-nearest intrinsics, so given the clip scale it computed,
+p, m and v are held bit-identical to the plain loop's (tolerance zero);
+its norm, summed in fp64, within 1e-6 of the fp64 norm.
 """
 import contextlib
+import math
 
 import numpy as np
 import pytest
@@ -33,6 +39,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import common as kcommon  # noqa: E402
+from repro_torch.kernels.adamw.ops import (  # noqa: E402
+    CHUNK, MAX_LEAVES, adamw_fused, counts, launch_count)
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     TILE, decode_attention, decode_attention_partial)
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
@@ -50,6 +58,10 @@ from repro_torch.models import (ModelConfig, decode_step,  # noqa: E402
 from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serve.engine import serving_params  # noqa: E402
 from repro_torch.train import loss_and_grads  # noqa: E402
+from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
+                                         adamw_plain, adamw_update,
+                                         clip_scale, decays, init_opt_state,
+                                         lr_at)
 
 pytestmark = pytest.mark.gpu
 
@@ -431,7 +443,7 @@ def test_model_on_the_card_launches_the_kernels_and_matches_the_cpu(cuda):
     assert kcommon.launches == {"rmsnorm": (2 * L + 1) * 4,
                                 "flash_attention": L,
                                 "decode_attention": 3 * L,
-                                "wkv6": 0}
+                                "wkv6": 0, "adamw": 0}
     for a, b in zip(out["cuda"], out["cpu"]):
         _assert_close(a.cpu(), b)
 
@@ -516,7 +528,7 @@ def test_moe_model_on_the_card_launches_the_kernels_and_matches_the_cpu(
           f"call: {flips}")
     assert len(flips) == 4 * L
     assert counts["cuda"] == {"rmsnorm": (2 * L + 1) * 4, "flash_attention": L,
-                              "decode_attention": 3 * L, "wkv6": 0}
+                              "decode_attention": 3 * L, "wkv6": 0, "adamw": 0}
     assert counts["cpu"] == {name: 0 for name in kcommon.KERNELS}
     for a, b in zip(out["cuda"], out["cpu"]):
         _assert_close(a.cpu(), b)
@@ -547,7 +559,7 @@ def test_rwkv6_on_the_card_launches_the_kernels_and_matches_the_cpu(cuda):
     L = cfg.num_layers
     assert counts["cpu"] == {name: 0 for name in kcommon.KERNELS}
     assert counts["cuda"] == {"rmsnorm": (3 * L + 1) * 4, "flash_attention": 0,
-                              "decode_attention": 0, "wkv6": L}
+                              "decode_attention": 0, "wkv6": L, "adamw": 0}
     for a, b in zip(out["cuda"], out["cpu"]):
         _assert_close(a.cpu(), b)
 
@@ -587,7 +599,7 @@ def test_hybrid_on_the_card_launches_the_kernels_and_matches_the_cpu(cuda):
     norms = 2 * cfg.num_layers + 2 + 1  # Mamba2 layers, shared block, final
     assert counts["cpu"] == {name: 0 for name in kcommon.KERNELS}
     assert counts["cuda"] == {"rmsnorm": norms * 4, "flash_attention": 1,
-                              "decode_attention": 3, "wkv6": 0}
+                              "decode_attention": 3, "wkv6": 0, "adamw": 0}
     for a, b in zip(out["cuda"], out["cpu"]):
         _assert_close(a.cpu(), b)
 
@@ -637,7 +649,7 @@ def test_audio_model_on_the_card_launches_the_kernels_and_matches_the_cpu(cuda):
     L = cfg.num_layers
     assert counts["cpu"] == {name: 0 for name in kcommon.KERNELS}
     assert counts["cuda"] == {"rmsnorm": (2 * L + 1) * 4, "flash_attention": L,
-                              "decode_attention": 3 * L, "wkv6": 0}
+                              "decode_attention": 3 * L, "wkv6": 0, "adamw": 0}
     assert out["cuda"][0].shape == (2, cfg.num_codebooks, cfg.vocab_size)
     for a, b in zip(out["cuda"], out["cpu"]):
         _assert_close(a.cpu(), b)
@@ -868,6 +880,11 @@ def test_train_step_device_spans_on_the_card(cuda):
         bwd = by_id[s.parent]
         assert s.tid != bwd.tid       # the engine's device thread
         assert bwd.t0 <= s.t0 and s.t0 + s.dur <= bwd.t0 + bwd.dur
+    numels = [p.numel() for p in tree_leaves(params)]
+    for s in spans:
+        if s.name == "train.optimizer":   # every element through K5
+            assert s.args == {"elems": sum(numels), "kernel_elems": sum(numels),
+                              "launches": launch_count([numels])}
     T = 2 * (24 + 8)
     for s in dispatch:
         assert s.args["choices"] == T * cfg.moe_top_k
@@ -1198,6 +1215,195 @@ def test_fused_loop_over_a_mix_puts_the_hosts_tokens_on_the_card(cuda):
     assert all(np.array_equal(a, b) for a, b in zip(host, want))
     assert len(host) == steps
 
+
+# ---------------------------------------------------------------------------
+# K5, AdamW: bit for bit against the plain loop at the kernel's clip scale
+# ---------------------------------------------------------------------------
+
+#: decay 0.1 on the >= 2-d leaves, clipping on (the grads' norm is ~1e3)
+_OPT = OptimizerConfig(learning_rate=1e-2, warmup_steps=2, total_steps=10)
+_F32, _BF16 = torch.float32, torch.bfloat16
+
+
+def _adamw_leaves(cuda, n_small=50):
+    """(p dtype, state dtype, shape, offset) of a mixed leaf list: 2-d
+    leaves (decay) whose sizes are no multiple of 4, 1-d ones (no decay),
+    leaves larger than a chunk, an empty one, bf16 moments, bf16 p and g,
+    one leaf one element off its vector alignment, and enough small fp32
+    leaves that the fp32 group takes more than one launch."""
+    spec = [(_F32, _F32, (3, 5), 0), (_F32, _F32, (7,), 0),
+            (_F32, _F32, (2 * CHUNK + 3,), 0), (_F32, _F32, (257, 1031), 0),
+            (_F32, _F32, (0, 8), 0), (_F32, _BF16, (64, 300), 0),
+            (_F32, _BF16, (CHUNK + 1,), 0), (_BF16, _BF16, (33, 65), 0),
+            (_F32, _F32, (5, 2 * CHUNK), 1)]
+    spec += [(_F32, _F32, (1 + (i * 37) % 301,) if i % 3 else (i + 1, 3), 0)
+             for i in range(n_small)]
+    return spec
+
+
+def _adamw_state(cuda, spec, seed=0):
+    """Parameters and moments drawn from ``seed`` (the moments as after a
+    few steps: v >= 0), each leaf a view ``offset`` elements into its
+    storage."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def leaf(dtype, shape, offset, fn=lambda x: x):
+        n = int(np.prod(shape))
+        base = fn(torch.randn(n + offset, generator=gen, device=cuda)).to(dtype)
+        return base[offset:].view(shape)
+
+    ps = [leaf(pd, shape, off) for pd, _sd, shape, off in spec]
+    ms = [leaf(sd, shape, off, lambda x: 1e-2 * x) for _pd, sd, shape, off in spec]
+    vs = [leaf(sd, shape, off, lambda x: 1e-4 * x * x) for _pd, sd, shape, off in spec]
+    return ps, ms, vs
+
+
+def _adamw_grads(cuda, spec, seed):
+    gen = torch.Generator(device=cuda).manual_seed(1000 + seed)
+    return [(30 * torch.randn(shape, generator=gen, device=cuda)).to(pd)
+            for pd, _sd, shape, _off in spec]
+
+
+def _step_scalars(cfg, step):
+    t = torch.tensor(step + 1.0, device="cuda")
+    return (lr_at(cfg, torch.tensor(step, device="cuda")),
+            1.0 - torch.pow(cfg.b1, t), 1.0 - torch.pow(cfg.b2, t))
+
+
+def _k5(cfg, ps, gs, ms, vs, step):
+    lr, bc1, bc2 = _step_scalars(cfg, step)
+    return adamw_fused(ps, gs, ms, vs, [decays(cfg, p) for p in ps], lr, bc1,
+                       bc2, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                       weight_decay=cfg.weight_decay, clip_norm=cfg.clip_norm)
+
+
+def test_adamw_kernel_is_bit_identical_to_the_plain_loop(cuda):
+    """Three steps of K5 against the plain loop fed K5's clip scale: p, m
+    and v equal bit for bit on every leaf; the scale is the plain rule's
+    of K5's norm."""
+    spec = _adamw_leaves(cuda)
+    kernel, plain = _adamw_state(cuda, spec), _adamw_state(cuda, spec)
+    for step in range(3):
+        gs = _adamw_grads(cuda, spec, step)
+        gnorm, scale = _k5(_OPT, *kernel[:1], gs, *kernel[1:], step)
+        assert float(scale) < 1.0   # clipping engaged
+        assert torch.equal(scale, clip_scale(_OPT, gnorm))
+        adamw_plain(_OPT, list(zip(plain[0], gs, plain[1], plain[2])), scale,
+                    *_step_scalars(_OPT, step))
+        for k, p in zip(kernel, plain):
+            for i, (a, b) in enumerate(zip(k, p)):
+                assert a.dtype == b.dtype and torch.equal(a, b), (step, i, spec[i])
+
+
+def test_adamw_update_on_the_card_takes_k5_and_equals_the_plain_loop(cuda):
+    """``adamw_update`` on CUDA tensors launches K5 and nothing else, and
+    gives the plain loop's result at the clip scale of its own norm, under
+    torch's sync debug mode set to raise on any host sync."""
+    shapes = [(64, 96), (96,), (3, 7, 11)]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    params = {f"w{i}": torch.randn(s, generator=gen, device=cuda)
+              for i, s in enumerate(shapes)}
+    want = {k: v.clone() for k, v in params.items()}
+    state, ref = init_opt_state(params), init_opt_state(want)
+    for step in range(3):
+        grads = {k: 40 * torch.randn(v.shape, generator=gen, device=cuda)
+                 for k, v in params.items()}
+        kcommon.reset_launches()
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            params, state, m = adamw_update(_OPT, params, grads, state)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        assert kcommon.launches == {k: 3 * (k == "adamw") for k in kcommon.KERNELS}
+        adamw_plain(_OPT, list(zip(*(tree_leaves(x) for x in
+                                     (want, grads, ref["m"], ref["v"])))),
+                    clip_scale(_OPT, m["grad_norm"]), *_step_scalars(_OPT, step))
+        for a, b in zip(tree_leaves(params) + tree_leaves(state["m"])
+                        + tree_leaves(state["v"]),
+                        tree_leaves(want) + tree_leaves(ref["m"]) + tree_leaves(ref["v"])):
+            assert torch.equal(a, b)
+
+
+def test_adamw_kernel_norm_is_the_fp64_norm_and_runs_repeat_bit_for_bit(cuda):
+    """K5's grad_norm within 1e-6 relative of the fp64 norm of the same
+    gradients, and two runs from the same state give the same bits."""
+    spec = _adamw_leaves(cuda)
+    gs = _adamw_grads(cuda, spec, 0)
+    runs = []
+    for _ in range(2):
+        ps, ms, vs = _adamw_state(cuda, spec)
+        gnorm, scale = _k5(_OPT, ps, gs, ms, vs, 0)
+        runs.append((gnorm, scale, ps, ms, vs))
+    want = math.sqrt(sum(float(g.double().pow(2).sum()) for g in gs))
+    assert abs(float(runs[0][0]) - want) <= 1e-6 * want
+    a, b = runs
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    for x, y in zip(a[2] + a[3] + a[4], b[2] + b[3] + b[4]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("leaves", [1, MAX_LEAVES, MAX_LEAVES + 1, 3 * MAX_LEAVES])
+def test_adamw_launches_grow_with_the_leaves_a_launch_holds(cuda, leaves):
+    """2 ceil(L / MAX_LEAVES) + 1 launches for L leaves, whatever their
+    size."""
+    for size in (5, 3 * CHUNK):
+        spec = [(_F32, _F32, (size,), 0)] * leaves
+        ps, ms, vs = _adamw_state(cuda, spec)
+        kcommon.reset_launches()
+        tabled = counts["elems"]
+        _k5(_OPT, ps, _adamw_grads(cuda, spec, 0), ms, vs, 0)
+        assert kcommon.launches["adamw"] == 2 * (-(-leaves // MAX_LEAVES)) + 1
+        assert kcommon.launches["adamw"] == launch_count([[size] * leaves])
+        assert counts["elems"] - tabled == size * leaves   # every leaf tabled
+
+
+def test_adamw_kernel_refuses_what_it_does_not_take(cuda):
+    spec = [(_F32, _F32, (8, 16), 0)]
+    ps, ms, vs = _adamw_state(cuda, spec)
+    gs = _adamw_grads(cuda, spec, 0)
+    kcommon.reset_launches()
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        _k5(_OPT, [ps[0].half()], gs, ms, vs, 0)
+    with pytest.raises(ValueError, match="m and v alike"):
+        _k5(_OPT, ps, gs, ms, [vs[0].bfloat16()], 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        _k5(_OPT, [ps[0].t()], [gs[0].t()], [ms[0].t()], [vs[0].t()], 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        _k5(_OPT, ps, [gs[0].cpu()], ms, vs, 0)
+    with pytest.raises(ValueError, match="contiguous"):   # adamw_update too
+        adamw_update(_OPT, {"w": ps[0].t()}, {"w": gs[0].t()},
+                     {"m": {"w": ms[0].t()}, "v": {"w": vs[0].t()},
+                      "step": torch.zeros((), dtype=torch.int32, device=cuda)})
+    assert kcommon.launches["adamw"] == 0   # a refused call launches nothing
+
+
+
+def test_adamw_update_refuses_dtensors_with_shards_on_the_card(cuda):
+    """A DTensor whose shards lie on the card raises rather than run the
+    plain loop there: K5 would need every shard's sum of squares."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(2))
+
+        def leaf(t, placement):
+            return DTensor.from_local(t, mesh, [placement], run_check=False)
+        params = {"w": leaf(torch.ones(4, 3, device=cuda), Shard(0))}
+        grads = {"w": leaf(torch.ones(4, 3, device=cuda), Shard(0))}
+        state = {"m": {"w": 0 * params["w"]}, "v": {"w": 0 * params["w"]},
+                 "step": leaf(torch.zeros((), dtype=torch.int32, device=cuda),
+                              Replicate())}
+        kcommon.reset_launches()
+        with pytest.raises(ValueError, match="DTensors with shards on the card"):
+            adamw_update(_OPT, params, grads, state)
+        assert kcommon.launches["adamw"] == 0
+        assert torch.equal(params["w"].to_local(), torch.ones(4, 3, device=cuda))
+    finally:
+        dist.destroy_process_group()
 
 # ---------------------------------------------------------------------------
 # The kernel forwards as torch.library operators

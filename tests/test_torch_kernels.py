@@ -26,6 +26,7 @@ from repro.kernels.flash_attention.ref import \
 from repro.kernels.rmsnorm import rmsnorm_fwd  # noqa: E402
 from repro.kernels.rmsnorm.ref import rmsnorm_ref as jax_rms_ref  # noqa: E402
 from repro_torch.kernels import common as kcommon  # noqa: E402
+from repro_torch.kernels.adamw import ops as adamw_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     MAX_CLUSTER, TILE, decode_attention, decode_plan)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
@@ -247,3 +248,53 @@ def test_k1_work_order_is_a_bijection_heaviest_first_within_a_section(
             assert len({(q0, h // rep, b) for q0, h, b in group}) == 1
             assert [h % rep for _, h, _ in group] == list(range(rep))
     assert i == len(items)
+
+
+def test_adamw_plan_constants_match_the_kernel_source():
+    src = (kcommon.CSRC_DIR / "adamw.cu").read_text()
+    assert re.search(rf"constexpr int kMaxLeaves = {adamw_ops.MAX_LEAVES};", src)
+    assert adamw_ops.CHUNK == 1 << 16
+    assert re.search(r"constexpr int64_t kChunk = 1 << 16;", src)
+    assert re.search(rf"constexpr int kVec = {adamw_ops.VEC};", src)
+    assert re.search(rf"constexpr int kDecay = {adamw_ops.DECAY}, "
+                     rf"kAligned = {adamw_ops.ALIGNED};", src)
+    for fn in ("adamw_sumsq", "adamw_scale", "adamw_fwd"):
+        assert re.search(rf'extern "C" int {fn}\(', src)
+
+
+CHUNK = adamw_ops.CHUNK
+
+
+@pytest.mark.parametrize("numels", [
+    [0],                                        # an empty leaf: no launch
+    [1, 3, 5],                                  # tiny, no vector
+    [CHUNK - 1, CHUNK, CHUNK + 1, 0, 4096],     # around a chunk, an empty one
+    [2**31 + 5, 7, 2**31 - 1],                  # over and under 2^31 elements
+    [(i * 7919) % (3 * CHUNK) for i in range(101)],  # 3 launches of <= 48
+    [0] * 60 + [9] * 48,                        # empties don't take slots
+])
+def test_adamw_chunk_plan_covers_every_element_once(numels):
+    """``chunk_plan``'s launches hold every non-empty leaf once, in order,
+    at most ``MAX_LEAVES`` a launch; the kernel's walk (``chunk_span`` of
+    every chunk, taken by block ``c % grid``) covers each leaf's elements
+    ``[0, n)`` exactly once, in chunks of at most ``CHUNK``."""
+    plan = adamw_ops.chunk_plan(numels)
+    assert [i for slots, _ in plan for i in slots] == \
+        [i for i, n in enumerate(numels) if n > 0]
+    grid = 4 * 132
+    for slots, first in plan:
+        assert 1 <= len(slots) <= adamw_ops.MAX_LEAVES
+        assert len(first) == len(slots) + 1 and first[0] == 0
+        n = [numels[i] for i in slots]
+        covered = [0] * len(slots)
+        by_block = [[] for _ in range(grid)]
+        for c in range(first[-1]):
+            by_block[c % grid].append(c)
+        for chunks in by_block:
+            assert chunks == sorted(chunks)     # a block walks them upwards
+        for c in range(first[-1]):
+            slot, start, stop = adamw_ops.chunk_span(first, n, c)
+            assert start == covered[slot] and 0 < stop - start <= CHUNK
+            covered[slot] = stop
+        assert covered == n
+    assert adamw_ops.launch_count([numels]) == 2 * len(plan) + 1

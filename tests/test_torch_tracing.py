@@ -22,6 +22,7 @@ from repro_torch.core import (Consumer, ManifestStore,  # noqa: E402
                               Producer)
 from repro_torch.models import ModelConfig, init_params, param_specs  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.common import tree_leaves  # noqa: E402
 from repro_torch.obs import registry as obs_registry  # noqa: E402
 from repro_torch.obs import tracer as obs_tracer  # noqa: E402
 from repro_torch.obs.tracer import (TRACER, Span, Tracer,  # noqa: E402
@@ -196,6 +197,17 @@ def test_train_step_spans_nest_in_order(tracing, microbatches):
     assert all(s.device_s is None for s in spans)
 
 
+def test_train_optimizer_span_counts_elements_and_launches(tracing):
+    """The ``train.optimizer`` span's args: every parameter element
+    updated, none by K5 and no K5 launch on CPU tensors (the card's half:
+    ``tests/test_torch_gpu.py::test_train_step_device_spans_on_the_card``)."""
+    step, params, opt, batch = _moe_step(1)
+    n = sum(p.numel() for p in tree_leaves(params))
+    step(params, opt, batch)
+    [s] = [s for s in TRACER.spans() if s.name == "train.optimizer"]
+    assert s.args == {"elems": n, "kernel_elems": 0, "launches": 0}
+
+
 def test_moe_dispatch_counts_kept_choices_by_hand(tracing):
     """``kept`` equals a hand count of the plan's ``keep`` on a layer whose
     capacity drops choices; ``slots`` is E·cap, ``choices`` T·K."""
@@ -345,8 +357,9 @@ def _reader(name):
 
 def _fake_spans():
     """Two steps of 100 ms of device time: forward 20, backward 50 (its
-    recompute dispatch 5 of which experts 2), optimizer 28; the forward's
-    dispatch 8 of which experts 3; host syncs 1 and 3."""
+    recompute dispatch 5 of which experts 2), optimizer 28 (1000 elements,
+    through K5 in the first step only); the forward's dispatch 8 of which
+    experts 3; host syncs 1 and 3."""
     out = []
 
     def span(name, sid, parent, device_s, args=None, cat="compute"):
@@ -366,7 +379,9 @@ def _fake_spans():
         span("moe.dispatch", k + 7, k + 6, 0.005,
              {"choices": 64, "kept": 40, "slots": 64})
         span("moe.experts", k + 8, k + 7, 0.002)
-        span("train.optimizer", k + 9, k + 2, 0.028)
+        span("train.optimizer", k + 9, k + 2, 0.028,
+             {"elems": 1000, "kernel_elems": 1000 if k == 0 else 0,
+              "launches": 3 if k == 0 else 0})
         span("consumer.get", k + 10, None, None, {"bytes": 4096}, cat="read")
     return out
 
@@ -378,6 +393,7 @@ def _fake_spans():
     ("moe.dispatch_share", 8.0),          # (5 + 3) of 100 ms a step
     ("moe.slot_use", 62.5),
     ("consumer.get_ms_p95", 18.8),        # 1..20 ms and 1..5 ms, 25 GETs
+    ("train.optimizer_kernel_share", 50.0),
 ])
 def test_each_new_reader_reads_spans_and_registry(monkeypatch, name, want):
     read = _reader(name)

@@ -13,6 +13,7 @@ arithmetic, one rounding apart at most); the model's loss rtol 1e-5 and each
 gradient leaf rtol 1e-4 with atol 1e-4 of the leaf's largest element (2e-4
 for RWKV6, whose decay products compound fp32 rounding over the sequence).
 """
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -204,6 +205,80 @@ def _assert_pairs(pairs, rtol=1e-6):
         a = np.asarray(a, np.float32)
         assert_allclose(_np(b), a, rtol=rtol,
                         atol=rtol * float(np.abs(a).max(initial=0.0)))
+
+
+def test_adamw_on_cpu_tensors_takes_the_plain_loop_and_launches_nothing():
+    """CPU tensors, and fake tensors on a CUDA device (the dry run's), take
+    the plain loop: K5 launches nothing, and the update equals the plain
+    loop's at the scale the plain norm gives."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.train.optimizer import (adamw_plain, clip_scale,
+                                             global_norm, lr_at, takes_kernel)
+    cfg = OptimizerConfig(learning_rate=1e-2, warmup_steps=2, total_steps=10)
+    rng = np.random.default_rng(11)
+    shapes = [(3, 5), (7,), (0, 4), (2, 3, 9)]
+    params = {f"w{i}": _t(rng.standard_normal(s).astype(np.float32))
+              for i, s in enumerate(shapes)}
+    grads = {k: _t(5 * rng.standard_normal(v.shape).astype(np.float32))
+             for k, v in params.items()}
+    want = {k: v.clone() for k, v in params.items()}
+    state = init_opt_state(params)
+    kcommon.reset_launches()
+    got, new_state, m = adamw_update(cfg, params, grads, state)
+    assert kcommon.launches == {name: 0 for name in kcommon.KERNELS}
+    assert int(new_state["step"]) == 1
+    ref_state = init_opt_state(want)
+    t = torch.tensor(1.0)
+    adamw_plain(cfg, list(zip(*(tree_leaves(x) for x in
+                                (want, grads, ref_state["m"], ref_state["v"])))),
+                clip_scale(cfg, global_norm(grads)), lr_at(cfg, 0),
+                1.0 - torch.pow(cfg.b1, t), 1.0 - torch.pow(cfg.b2, t))
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(a, b)
+    assert torch.equal(m["grad_norm"], global_norm(grads))
+    assert not takes_kernel(tree_leaves(params))
+    with FakeTensorMode():
+        fake = [torch.empty(4, device="cuda") for _ in range(4)]
+        assert not takes_kernel(fake)
+
+
+@pytest.mark.parametrize("shards", ["fake_cuda", "cpu"])
+def test_adamw_on_dtensors_off_the_card_takes_the_plain_loop(shards):
+    """DTensors over fake CUDA tensors (the dry run's) and over CPU tensors
+    take the plain loop; the update runs on them and launches nothing."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.train.optimizer import takes_kernel
+    cfg = OptimizerConfig(learning_rate=1e-2, warmup_steps=2, total_steps=10)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        device = "cuda" if shards == "fake_cuda" else "cpu"
+        mesh = DeviceMesh(device, torch.arange(2))
+        with FakeTensorMode(allow_non_fake_inputs=True) \
+                if shards == "fake_cuda" else contextlib.nullcontext():
+            def leaf(shape, placement, dtype=torch.float32):
+                return DTensor.from_local(
+                    torch.ones(shape, dtype=dtype, device=device), mesh,
+                    [placement], run_check=False)
+            params = {"w": leaf((4, 3), Shard(0)), "b": leaf((3,), Replicate())}
+            grads = {k: 2 * v for k, v in params.items()}
+            # as the dry run places them: the step counter replicated too
+            state = {"m": {k: 0 * v for k, v in params.items()},
+                     "v": {k: 0 * v for k, v in params.items()},
+                     "step": 0 * leaf((), Replicate(), torch.int32)}
+            assert not takes_kernel(tree_leaves(params) + tree_leaves(grads))
+            kcommon.reset_launches()
+            got, state, m = adamw_update(cfg, params, grads, state)
+            assert kcommon.launches["adamw"] == 0
+            assert all(hasattr(t, "placements") for t in
+                       tree_leaves(got) + tree_leaves(state["m"]))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_adamw_first_step_math():
