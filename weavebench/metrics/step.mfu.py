@@ -1,6 +1,7 @@
 """The whole step's share of the chip's bf16 peak: model FLOPs a step
-(``wb.flops.step_model_flops``) times the steps, over their wall seconds,
-outside the traced slice."""
+(``run.step_flops``, from ``step_model_flops`` of the reference module the
+configuration names, ``wb/reference/<reference>.py``) times the steps, over
+their wall seconds, outside the traced slice."""
 
 
 def read(run):

@@ -11,7 +11,7 @@ import pytest
 pytest.importorskip("torch")
 
 from wb.harness import run_cell  # noqa: E402
-from wb.spec import Spec  # noqa: E402
+from wb.spec import Spec, reference  # noqa: E402
 
 SPEC = Spec()
 
@@ -26,22 +26,19 @@ def one_thread():
     yield
     torch.set_num_threads(n)
 CELLS = [w["name"] for w in SPEC.data["workloads"]]
-# float32 on both sides: at these widths bf16 rounding alone would read
-# above limits set for the cells' widths; the faults read far above them
-TINY = {"num_layers": 2, "d_model": 64, "num_heads": 4, "num_kv_heads": 2, "head_dim": 16,
-        "d_ff": 160, "vocab_size": 257, "compute_dtype": "float32"}
-TINY_MOE = dict(TINY, moe_num_experts=8, moe_top_k=2, moe_d_ff=32)
 
 
-def overrides(cell):
-    w = SPEC.cell(cell)
-    traffic, moe = SPEC.traffic(w), SPEC.config(w)["model"].get("moe_num_experts")
+def overrides(cell, spec=SPEC):
+    """A whole run's small size: the model as the cell's reference module
+    sizes it for these tests (``tiny``), the traffic cut here."""
+    w = spec.cell(cell)
+    traffic, cfg = spec.traffic(w), spec.config(w)
     tr = {"seq_len": traffic["seq_len"] // 32, "backlog_steps": 10}
     if traffic["frontend_prefix"]:
         tr["frontend_prefix"] = 8
     if "producer" in traffic:
         tr["producer"] = dict(traffic["producer"], produce_delay_s=0.01)
-    return {"model": TINY_MOE if moe else TINY, "traffic": tr}
+    return {"model": reference(cfg["reference"]).tiny(cfg["model"]), "traffic": tr}
 
 
 def run(cell, fault=None):

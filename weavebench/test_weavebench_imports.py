@@ -1,6 +1,7 @@
 """What the harness loads: nothing of JAX or of the JAX package ``repro``
-(top-level names compared whole, so ``repro_torch`` passes), nothing of the
-old ``benchmarks/`` folder, and no result without a card."""
+(top-level names compared whole, so ``repro_torch`` passes), also in every
+reference module, each cell's found by its configuration's name; nothing of
+the old ``benchmarks/`` folder, and no result without a card."""
 import json
 import shutil
 import subprocess
@@ -36,7 +37,13 @@ except ImportError:
     pass
 else:
     raise SystemExit("the blocker let repro through")
-import wb.harness, wb.trace, wb.control, wb.traffic, wb.check, wb.reference.transformer
+import wb.harness, wb.trace, wb.control, wb.traffic, wb.check, wb.reference.common
+from wb.spec import Spec, reference
+spec = Spec()
+for w in spec.data["workloads"]:
+    reference(spec.config(w)["reference"])
+for p in (importlib.import_module("pathlib").Path(BENCH) / "wb" / "reference").glob("*.py"):
+    importlib.import_module("wb.reference." + p.stem)
 import repro_torch.train.pipeline, repro_torch.dataplane, repro_torch.core
 import repro_torch.train, repro_torch.models.config
 from wb.spec import metric_reader

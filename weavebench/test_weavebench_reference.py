@@ -7,8 +7,7 @@ torch = pytest.importorskip("torch")
 
 from wb import check  # noqa: E402
 from wb.control import control_readings  # noqa: E402
-from wb.reference import transformer as R  # noqa: E402
-from wb.spec import Spec  # noqa: E402
+from wb.spec import Spec, reference  # noqa: E402
 from wb.weights import draw_leaf  # noqa: E402
 
 SPEC = Spec()
@@ -24,20 +23,18 @@ def one_thread():
     yield
     torch.set_num_threads(n)
 CELLS = [w["name"] for w in SPEC.data["workloads"]]
-SMALL = {"num_layers": 2, "d_model": 128, "num_heads": 4, "num_kv_heads": 2, "head_dim": 32,
-         "d_ff": 256, "vocab_size": 512}
-SMALL_MOE = dict(SMALL, moe_num_experts=8, moe_top_k=2, moe_d_ff=32)
 
 
-def small(cell):
-    cfg = SPEC.config(SPEC.cell(cell))
-    traffic = SPEC.traffic(SPEC.cell(cell))
-    model = SMALL_MOE if cfg["model"].get("moe_num_experts") else SMALL
+def small(cell, spec=SPEC):
+    """The controls' small size: the model as the cell's reference module
+    sizes it for these tests (``small``), the traffic cut here."""
+    cfg = spec.config(spec.cell(cell))
+    traffic = spec.traffic(spec.cell(cell))
     tr = {"seq_len": min(traffic["seq_len"], 64 * (traffic["seq_len"] // 1024)),
           "backlog_steps": 4}
     if traffic["frontend_prefix"]:
         tr["frontend_prefix"] = 8
-    return {"model": model, "traffic": tr}
+    return {"model": reference(cfg["reference"]).small(cfg["model"]), "traffic": tr}
 
 
 @pytest.fixture
@@ -48,20 +45,27 @@ def cuda():
 
 
 def test_the_reference_repeats_itself_and_follows_the_seed():
-    cfg = SPEC.config(SPEC.cell(CELLS[0]))
-    m = dict(cfg["model"], **SMALL)
-    opt = SPEC.traffic(SPEC.cell(CELLS[0]))["optimizer"]
-    lay = R.layout(m)
-    batches = [torch.randint(0, m["vocab_size"], (2, 16), generator=torch.Generator().manual_seed(i))
-               for i in range(2)]
+    # once for each family's reference, at its first cell's configuration
+    firsts = {}
+    for cell in CELLS:
+        firsts.setdefault(SPEC.config(SPEC.cell(cell))["reference"], cell)
+    for name, cell in sorted(firsts.items()):
+        cfg = SPEC.config(SPEC.cell(cell))
+        R = reference(name)
+        m = dict(cfg["model"], **R.small(cfg["model"]))
+        opt = SPEC.traffic(SPEC.cell(cell))["optimizer"]
+        lay = R.layout(m)
+        batches = [torch.randint(0, m["vocab_size"], (2, 16),
+                                 generator=torch.Generator().manual_seed(i)) for i in range(2)]
 
-    def read(seed):
-        return R.train_readings(m, opt, lambda i: draw_leaf(seed, i, lay[i], "cpu"), batches)
+        def read(seed):
+            return R.train_readings(m, opt, lambda i: draw_leaf(seed, i, lay[i], "cpu"),
+                                    batches)
 
-    a, b, c = read(2**31 + 5), read(2**31 + 5), read(2**31 + 6)
-    assert a == b
-    assert a["grad1"] != c["grad1"] and a["change"] != c["change"]
-    assert all(x > 0 for x in a["change"].values())
+        a, b, c = read(2**31 + 5), read(2**31 + 5), read(2**31 + 6)
+        assert a == b, name
+        assert a["grad1"] != c["grad1"] and a["change"] != c["change"], name
+        assert all(x > 0 for x in a["change"].values()), name
 
 
 @pytest.mark.parametrize("name", sorted({w["config"] for w in SPEC.data["workloads"]}))
@@ -73,9 +77,10 @@ def test_the_reference_layout_is_the_program_tree(name):
     from repro_torch.models.config import ModelConfig
 
     cell = next(w for w in SPEC.data["workloads"] if w["config"] == name)
-    m = SPEC.config(cell)["model"]
+    cfg = SPEC.config(cell)
+    m = cfg["model"]
     shapes = [tuple(s.shape) for s in tree_leaves(param_specs(ModelConfig(**m)))]
-    assert shapes == [tuple(spec[1]) for spec in R.layout(m)]
+    assert shapes == [tuple(spec[1]) for spec in reference(cfg["reference"]).layout(m)]
     assert sum(int(np.prod(s)) for s in shapes) == ModelConfig(**m).param_count()
 
 

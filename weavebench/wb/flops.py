@@ -1,12 +1,13 @@
-"""The work the benchmark credits: a training step's model FLOPs and each
-kernel operator's FLOPs and bytes, from shapes alone.
+"""The work the benchmark credits that no model family owns: each kernel
+operator's FLOPs and bytes from its shapes, the causal attention products,
+the roofline's least time, and the chip's peaks.
 
-Model FLOPs of a step are 6 x the matmul parameters a position uses x the
-positions, plus the causal attention products (QK^T and PV over the pairs
-j <= i, forward and backward = 3 x forward). The token embedding is a
-lookup and counts nothing; an MoE layer counts its router and its top-k
-experts; recomputation (remat, the backward rules' recompute) is not
-counted.
+A step's model FLOPs are the family's: ``step_model_flops(m, global_batch,
+seq_len, prefix)`` of the reference module the configuration names
+(``wb/reference/<reference>.py``), which the harness calls for
+``step.mfu``. The kernel readers (``metrics/*_roofline.py``) take the calls
+of their operator from the traced slice, which records every
+``repro_torch::`` operator, and the work of each call from here.
 """
 from __future__ import annotations
 
@@ -16,31 +17,10 @@ from pathlib import Path
 PEAKS = json.loads((Path(__file__).with_name("peaks.json")).read_text())
 
 
-def matmul_params(m: dict) -> int:
-    """Weights a position multiplies by, in one forward."""
-    D, H, G, dh = m["d_model"], m["num_heads"], m["num_kv_heads"], m["head_dim"]
-    attn = D * H * dh + 2 * D * G * dh + H * dh * D
-    if m.get("moe_num_experts"):
-        ffn = m["moe_top_k"] * 3 * D * m["moe_d_ff"] + D * m["moe_num_experts"]
-    else:
-        ffn = 3 * D * m["d_ff"]
-    return m["num_layers"] * (attn + ffn) + D * m["vocab_size"]
-
-
 def causal_attention_flops(B: int, H: int, S: int, dh: int) -> int:
     """QK^T and PV of one causal self-attention forward: 2 products of
     2 * dh FLOPs over each of the S (S + 1) / 2 pairs, every head."""
     return 4 * B * H * dh * (S * (S + 1) // 2)
-
-
-def step_model_flops(m: dict, global_batch: int, seq_len: int, prefix: int = 0) -> int:
-    """Model FLOPs of one training step over (global_batch, prefix + seq_len)
-    positions."""
-    S = prefix + seq_len
-    dense = 6 * matmul_params(m) * global_batch * S
-    attn = 3 * m["num_layers"] * causal_attention_flops(global_batch, m["num_heads"], S,
-                                                         m["head_dim"])
-    return dense + attn
 
 
 def attention_op_work(q_shape, k_shape, causal: bool = True):

@@ -11,6 +11,10 @@ Set-up builds that one loop, with the weights drawn on the device from the
 seed, and drives it through the traffic's ``checked_steps`` first steps:
 the same ``run`` call and feed as the window. The reference follows those
 steps once the window has closed and the program's state is freed.
+
+What belongs to a model family (the parameter layout the weights are drawn
+in, the reference's readings, the step's model FLOPs) comes from the
+reference module the configuration names; nothing here names a family.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from typing import Optional
 import numpy as np
 
 from wb import check
-from wb.flops import PEAKS, step_model_flops
+from wb.flops import PEAKS
 from wb.spec import Spec, metric_reader, reference
 from wb.traffic import fan_in, open_feed
 from wb.weights import draw_leaf, frame_embeddings, nest
@@ -35,8 +39,9 @@ from wb.weights import draw_leaf, frame_embeddings, nest
 #: steps of a traced window under the profiler: without the operators'
 #: input shapes, then with them
 TRACE_STEPS, OP_STEPS = 6, 3
-#: operators whose calls the kernel metrics read
-TRACED_OPS = ("repro_torch::flash_attention_fwd", "repro_torch::rmsnorm_fwd")
+#: the program's operators, whose calls in the second traced slice reach the
+#: metric readers (``run.trace["calls"]``, by operator name)
+OPS = "repro_torch::"
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
 
@@ -218,14 +223,14 @@ def run_cell(spec: Spec, name: str, seed: int, seconds: float, trace: bool,
         run = SimpleNamespace(
             cell=cell, model=m, traffic=traffic, timings=timings, window_s=window_s,
             profiled=profiled, read_latencies=lat_new, peaks=PEAKS, trace=None,
-            step_flops=step_model_flops(m, GB, S, P), tokens_per_step=tokens_per_step)
+            step_flops=ref_mod.step_model_flops(m, GB, S, P), tokens_per_step=tokens_per_step)
         if trace:
             if traced is None:
                 raise RuntimeError("the window ended before its traced slice")
             from wb.trace import summarize
             run.trace = summarize(traced.events(), traced.t_clock, lo, hi, TRACER.spans())
             run.trace["calls"] = summarize(traced_ops.events(), traced_ops.t_clock, lo_ops,
-                                           hi_ops, ops=TRACED_OPS)["calls"]
+                                           hi_ops, ops=OPS)["calls"]
             metrics = {}
             for mt in spec.metrics(cell, "per_layer"):
                 v = metric_reader(mt["name"])(run)

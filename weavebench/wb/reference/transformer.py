@@ -1,6 +1,7 @@
 """Plain PyTorch reference of the decoder-only transformer family (dense
 SwiGLU or capacity-routed MoE FFN, GQA attention with RoPE, RMSNorm, an
-optional prefix of precomputed frame embeddings), its loss and AdamW.
+optional prefix of precomputed frame embeddings) and its loss; AdamW and
+the training loop are ``common``'s.
 
 A frozen copy written for the benchmark: it imports nothing of the program
 under test. It follows the published layer equations at the configuration's
@@ -11,13 +12,12 @@ configuration file states them (half-split RoPE, the MoE capacity
 ``ceil(T * top_k / E * capacity_factor)`` rounded up to 4, choice-major
 slots, a load-balance loss of ``E * sum(frac * mean_prob) * aux_coef``).
 
-``numerics`` picks the precision of the products' operands and of the
-activations between them: by default the configuration's ``compute_dtype``
-(``"bf16"``, or ``"fp32"`` for a float32 configuration), and ``"fp8"``
-is the control, every product one precision step below the
-configuration's: e4m3 operands with one scale a tensor for the bf16
-products (bf16 activations), bf16 operands for the fp32 router. ``rows`` keeps the first ``rows`` rows of each batch
-(a fault: half the batch left out).
+``numerics`` is ``common``'s (the configuration's by default, ``"fp8"``
+the control), and for the fp32 router the control takes bf16 operands.
+``rows`` keeps the first ``rows`` rows of each batch (a fault: half the
+batch left out). The module gives what the harness and the tests ask of a
+family: ``layout``, ``train_readings``, ``step_model_flops``, the tests'
+sizes ``tiny`` and ``small``, and, for MoE, ``Routes``.
 """
 from __future__ import annotations
 
@@ -28,8 +28,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from wb.flops import causal_attention_flops
+from wb.reference import common
+from wb.reference.common import act, mm, operand
+
 NEG = -1e30
-FP8_MAX = 448.0  # largest finite float8_e4m3fn
 
 
 def layout(m: dict) -> List[Tuple[str, tuple, str, float]]:
@@ -70,44 +73,6 @@ def layout(m: dict) -> List[Tuple[str, tuple, str, float]]:
         else:
             out.append((k,) + top[k])
     return out
-
-
-# ---------------------------------------------------------------------------
-# numerics
-# ---------------------------------------------------------------------------
-
-def _fp8(x: torch.Tensor) -> torch.Tensor:
-    """x rounded through float8_e4m3fn with one scale for the tensor, back
-    in bf16; the gradient passes straight through."""
-    with torch.no_grad():
-        scale = x.detach().abs().amax().float().clamp_min(1e-12) / FP8_MAX
-        q = (x.detach().float() / scale).to(torch.float8_e4m3fn).float() * scale
-    xb = x.to(torch.bfloat16)
-    return xb + (q.to(torch.bfloat16) - xb).detach()
-
-
-def stated(m: dict) -> str:
-    """The numerics the configuration states."""
-    return {"bfloat16": "bf16", "float32": "fp32"}[m.get("compute_dtype", "bfloat16")]
-
-
-def act(numerics: str) -> torch.dtype:
-    """The activations' dtype under ``numerics``."""
-    return torch.float32 if numerics == "fp32" else torch.bfloat16
-
-
-def operand(x: torch.Tensor, numerics: str) -> torch.Tensor:
-    if numerics == "fp32":
-        return x.float()
-    if numerics == "bf16":
-        return x.to(torch.bfloat16)
-    if numerics == "fp8":
-        return _fp8(x)
-    raise ValueError(f"numerics {numerics!r}")
-
-
-def mm(a: torch.Tensor, b: torch.Tensor, numerics: str) -> torch.Tensor:
-    return operand(a, numerics) @ operand(b, numerics)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -285,81 +250,64 @@ def loss_fn(m: dict, params: Dict[str, torch.Tensor], tokens: torch.Tensor,
     return nll.mean() + aux
 
 
-# ---------------------------------------------------------------------------
-# AdamW with global-norm clipping, warmup and cosine decay
-# ---------------------------------------------------------------------------
-
-PIECE = 1 << 24
-
-
-def lr_at(opt: dict, step: int) -> float:
-    warm = min(1.0, (step + 1) / max(1, opt["warmup_steps"]))
-    if opt.get("schedule", "cosine") == "constant":
-        return opt["learning_rate"] * warm
-    t = min(1.0, max(0.0, (step - opt["warmup_steps"])
-                     / max(1, opt["total_steps"] - opt["warmup_steps"])))
-    frac = opt["min_lr_frac"] + (1 - opt["min_lr_frac"]) * 0.5 * (1 + math.cos(math.pi * t))
-    return opt["learning_rate"] * warm * frac
-
-
-@torch.no_grad()
-def adamw(opt: dict, step: int, params, grads, mom, vel, scale) -> None:
-    """One AdamW step in place (fp32), leaf by leaf in pieces; leaves of two
-    or more dimensions decay."""
-    b1, b2 = opt["b1"], opt["b2"]
-    lr, bc1, bc2 = lr_at(opt, step), 1 - b1 ** (step + 1), 1 - b2 ** (step + 1)
-    for path, p in params.items():
-        decay = opt["weight_decay"] if p.dim() >= 2 else 0.0
-        for pc, gc, mc, vc in zip(*(t.view(-1).split(PIECE) for t in
-                                    (p, grads[path], mom[path], vel[path]))):
-            g = gc * scale
-            mc.mul_(b1).add_(g, alpha=1 - b1)
-            vc.mul_(b2).addcmul_(g, g, value=1 - b2)
-            d = (mc / bc1).div_((vc / bc2).sqrt_().add_(opt["eps"]))
-            if decay:
-                d.add_(pc, alpha=decay)
-            pc.sub_(d, alpha=lr)
-
-
 def train_readings(m: dict, opt: dict, make_leaf, batches, frontend=None,
                    numerics: Optional[str] = None, rows: Optional[int] = None,
                    routes: Optional[Routes] = None) -> dict:
-    """Train from the seeded weights on ``batches`` (one (GB, S) int tensor a
-    step) and read what the benchmark compares: each step's loss, each
-    leaf's norm of the first step's clipped gradient, and each leaf's norm
-    of the change of its weights over the steps. ``make_leaf(i)`` returns
-    leaf i of ``layout(m)``, fp32, freshly drawn from the seed. An MoE
-    model routes as ``routes`` says (its own choices are recorded there)."""
-    numerics = numerics or stated(m)
-    lay = layout(m)
-    params = {path: make_leaf(i) for i, (path, *_r) in enumerate(lay)}
-    mom = {k: torch.zeros_like(p) for k, p in params.items()}
-    vel = {k: torch.zeros_like(p) for k, p in params.items()}
-    losses, grad1 = [], {}
-    for step, tokens in enumerate(batches):
-        fe = frontend
-        if rows is not None:
-            tokens = tokens[:rows]
-            fe = None if fe is None else fe[:rows]
-        live = {k: p.detach().requires_grad_() for k, p in params.items()}
-        if routes is not None:
-            routes.step = step
-        loss = loss_fn(m, live, tokens, fe, numerics, routes)
-        grads = dict(zip(live, torch.autograd.grad(loss, list(live.values()))))
-        del live
-        gnorm = torch.sqrt(sum(g.double().pow(2).sum() for g in grads.values())).item()
-        scale = min(1.0, opt["clip_norm"] / max(gnorm, 1e-9))
-        if step == 0:
-            grad1 = {k: float(g.norm()) * scale for k, g in grads.items()}
-        adamw(opt, step, params, grads, mom, vel, scale)
-        del grads
-        losses.append(float(loss.detach()))
-    del mom, vel
-    change = {}
-    for i, (path, *_r) in enumerate(lay):
-        p0 = make_leaf(i)
-        change[path] = math.sqrt(sum(float((a - b).double().pow(2).sum()) for a, b in
-                                     zip(params[path].view(-1).split(PIECE),
-                                         p0.view(-1).split(PIECE))))
-        del p0
-    return {"losses": losses, "grad1": grad1, "change": change}
+    """``common.train_readings`` of this family: each step's loss, each
+    leaf's first clipped gradient norm and each leaf's change. An MoE model
+    routes as ``routes`` says (its own choices are recorded there)."""
+    return common.train_readings(layout, loss_fn, m, opt, make_leaf, batches, frontend,
+                                 numerics, rows, routes)
+
+
+# ---------------------------------------------------------------------------
+# the work a step is credited with
+# ---------------------------------------------------------------------------
+
+def matmul_params(m: dict) -> int:
+    """Weights a position multiplies by, in one forward."""
+    D, H, G, dh = m["d_model"], m["num_heads"], m["num_kv_heads"], m["head_dim"]
+    attn = D * H * dh + 2 * D * G * dh + H * dh * D
+    if m.get("moe_num_experts"):
+        ffn = m["moe_top_k"] * 3 * D * m["moe_d_ff"] + D * m["moe_num_experts"]
+    else:
+        ffn = 3 * D * m["d_ff"]
+    return m["num_layers"] * (attn + ffn) + D * m["vocab_size"]
+
+
+def step_model_flops(m: dict, global_batch: int, seq_len: int, prefix: int = 0) -> int:
+    """Model FLOPs of one training step over (global_batch, prefix + seq_len)
+    positions: 6 x the matmul parameters a position uses x the positions,
+    plus the causal attention products (forward and backward = 3 x
+    forward). The token embedding is a lookup and counts nothing; an MoE
+    layer counts its router and its top-k experts; recomputation (remat,
+    the backward rules' recompute) is not counted."""
+    S = prefix + seq_len
+    dense = 6 * matmul_params(m) * global_batch * S
+    attn = 3 * m["num_layers"] * causal_attention_flops(global_batch, m["num_heads"], S,
+                                                         m["head_dim"])
+    return dense + attn
+
+
+# ---------------------------------------------------------------------------
+# the CPU tests' sizes
+# ---------------------------------------------------------------------------
+
+# float32 on both sides: at these widths bf16 rounding alone would read
+# above limits set for the cells' widths; the faults read far above them
+TINY = {"num_layers": 2, "d_model": 64, "num_heads": 4, "num_kv_heads": 2, "head_dim": 16,
+        "d_ff": 160, "vocab_size": 257, "compute_dtype": "float32"}
+TINY_MOE = dict(TINY, moe_num_experts=8, moe_top_k=2, moe_d_ff=32)
+SMALL = {"num_layers": 2, "d_model": 128, "num_heads": 4, "num_kv_heads": 2, "head_dim": 32,
+         "d_ff": 256, "vocab_size": 512}
+SMALL_MOE = dict(SMALL, moe_num_experts=8, moe_top_k=2, moe_d_ff=32)
+
+
+def tiny(m: dict) -> dict:
+    """The model overrides of a whole run in the CPU faults tests."""
+    return TINY_MOE if m.get("moe_num_experts") else TINY
+
+
+def small(m: dict) -> dict:
+    """The model overrides of the controls read in the CPU tests."""
+    return SMALL_MOE if m.get("moe_num_experts") else SMALL

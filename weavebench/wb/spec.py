@@ -4,8 +4,20 @@ A cell (an entry of ``workloads``) names a configuration, whose entry in
 ``configs`` gives its file, and a traffic mix, ``traffic/<traffic>.json``.
 Its limits are ``limits/<cell>.json``, each per-layer metric's reader is
 ``metrics/<metric>.py``, and a configuration's plain reference is
-``wb/reference/<reference>.py``. Adding a cell, a mix, a configuration or
-a metric is adding files and entries; no file here changes.
+``wb/reference/<reference>.py``, named by the configuration file's
+``reference``. Adding a cell, a mix, a configuration or a metric, also of
+another model family, is adding files and entries; no file here changes.
+
+A reference module holds everything that belongs to its family, and gives:
+``layout(m)``, the parameter leaves the weights are drawn in;
+``train_readings(m, opt, make_leaf, batches, frontend, numerics, rows,
+routes)``, what the comparison reads (``common.train_readings`` over the
+family's loss); ``step_model_flops(m, global_batch, seq_len, prefix)``, the
+model FLOPs of a step that ``step.mfu`` credits; ``tiny(m)`` and
+``small(m)``, the model overrides the CPU tests run it at; and, for an MoE
+family, ``Routes``, so that the reference can follow the program's routing.
+A metric reader gets the calls of every ``repro_torch::`` operator in the
+second traced slice (``run.trace["calls"]``, by operator name).
 """
 from __future__ import annotations
 
@@ -49,6 +61,7 @@ class Spec:
 
 
 def reference(name: str):
+    """The plain reference module ``wb/reference/<name>.py``."""
     return importlib.import_module(f"wb.reference.{name}")
 
 

@@ -5,7 +5,8 @@ Two slices: the first records no input shapes, so the profiler adds as
 little host work as it can to the steps whose device time and idle gaps it
 reads; the second records the host operators' input shapes too, for the
 kernel metrics' attribution by operator (a kernel's device time does not
-depend on the host's pace).
+depend on the host's pace): the calls of every ``repro_torch::`` operator
+are collected once the slice has closed.
 
 The profiler drops the first device events of each session, more as the
 process ages, so each slice opens with ``MARKERS`` spin kernels that are
@@ -101,13 +102,14 @@ def _outermost(events: List[dict]) -> List[dict]:
 
 
 def summarize(events: List[dict], t_clock: float, host_lo: float, host_hi: float,
-              spans=(), ops=()) -> dict:
+              spans=(), ops: str = "") -> dict:
     """Read a slice's trace over the host interval [host_lo, host_hi]
     (``perf_counter`` seconds): the device's busy and window seconds, the
     ten device operations that took most time, the ten longest idle gaps
     labelled by the program's span open on the host at the time, and for
-    each operator name in ``ops`` its calls as (input shapes, device
-    seconds of every kernel launched inside the call)."""
+    every host operator whose name starts with ``ops`` (none where it is
+    empty) its calls as (input shapes, device seconds of every kernel
+    launched inside the call), by operator name."""
     dev = [e for e in events if e.get("cat") in DEVICE_CATS and "dur" in e]
     spins = [e["ts"] for e in dev if "spin_kernel" in e.get("name", "")]
     if not spins:
@@ -138,8 +140,11 @@ def summarize(events: List[dict], t_clock: float, host_lo: float, host_hi: float
     idle = sorted(((label(a, b), (b - a) / 1e6) for a, b in gaps), key=lambda x: -x[1])[:10]
     calls = {}
     if ops:
-        cpu = [e for e in events if e.get("cat") == "cpu_op" and "dur" in e
-               and lo <= e["ts"] <= hi]
+        by_op: Dict[str, List[dict]] = {}
+        for e in events:
+            if e.get("cat") == "cpu_op" and "dur" in e and lo <= e["ts"] <= hi \
+                    and e.get("name", "").startswith(ops):
+                by_op.setdefault(e["name"], []).append(e)
         launches: Dict[object, list] = {}
         for e in events:
             if e.get("cat") in LAUNCH_CATS:
@@ -153,9 +158,9 @@ def summarize(events: List[dict], t_clock: float, host_lo: float, host_hi: float
             c = (e.get("args") or {}).get("correlation")
             if c is not None:
                 by_corr.setdefault(c, []).append(e["dur"])
-        for op in ops:
+        for op in sorted(by_op):
             out = []
-            for e in _outermost([c for c in cpu if c["name"] == op]):
+            for e in _outermost(by_op[op]):
                 tid = e.get("tid")
                 ts = starts.get(tid, [])
                 i0 = bisect.bisect_left(ts, e["ts"])
