@@ -20,7 +20,7 @@ Also implements:
 from __future__ import annotations
 
 import threading
-from concurrent.futures import Future
+from concurrent.futures import Future, wait
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -514,10 +514,16 @@ class Consumer:
         self._prefetch_thread.start()
 
     def stop_prefetch(self) -> None:
+        """Stop the prefetch loop and wait for the fetches it left in flight
+        on the shared IO pool, so a stopped consumer sends no more GETs
+        (nor records their latencies and spans) once this returns."""
         self._prefetch_stop.set()
         if self._prefetch_thread is not None:
             self._prefetch_thread.join(timeout=5)
             self._prefetch_thread = None
+        with self._prefetch_lock:
+            inflight = list(self._inflight.values())
+        wait(inflight, timeout=5)
 
     def _evict_overflow(self) -> None:
         """Bound prefetch memory without starving the cursor. Caller holds

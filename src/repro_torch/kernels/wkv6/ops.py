@@ -12,6 +12,11 @@ From a zero state, as the Pallas kernel. The backward differentiates
 differentiates (``src/repro/models/rwkv6.py``); the reference's ``_bwd``
 (``src/repro/kernels/wkv6/ops.py``) takes the vjp of the per-step
 ``wkv6_ref``, the same function, which would be one step per token here.
+
+While the tracer is on, the kernel's call and the backward rule are device
+spans, ``wkv6.forward`` and ``wkv6.backward`` (args ``tokens`` = B·S,
+``heads``, ``chunk``); under per-layer remat ``wkv6.forward`` opens twice a
+layer, in the forward and in the recompute inside the backward.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 from repro_torch.kernels.common import (aligned16, define_op, launch, load,
                                         mesh_divides, on_cpu, require)
 from repro_torch.kernels.wkv6.ref import wkv6_chunked
+from repro_torch.obs.tracer import trace_span
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"wkv6_fwd": [_P] * 7 + [_I] * 5 + [_P]}
@@ -102,19 +108,30 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.autograd.grad(wkv6_chunked(*ins, chunk)[0], ins, g)
 
 
+def _span(name: str, r: torch.Tensor, chunk: int):
+    """The device span of one call or rule over r (B, S, H, dh)."""
+    B, S, H, _ = r.shape
+    return trace_span(name, cat="compute", device=True, tokens=B * S, heads=H,
+                      chunk=chunk)
+
+
 class _WKV6(torch.autograd.Function):
     @staticmethod
     def forward(ctx, r, k, v, w, u, chunk):
         ctx.save_for_backward(r, k, v, w, u)
         ctx.chunk = chunk
-        y, state = wkv6_fwd(r, k, v, w, u, chunk)
+        with _span("wkv6.forward", r, chunk):
+            y, state = wkv6_fwd(r, k, v, w, u, chunk)
         ctx.mark_non_differentiable(state)
         ctx.placements = getattr(y, "placements", None)
         return y, state
 
     @staticmethod
     def backward(ctx, g, _g_state):
-        if ctx.placements is not None:
+        saved = ctx.saved_tensors
+        with _span("wkv6.backward", saved[0], ctx.chunk):
+            if ctx.placements is None:
+                return (*wkv6_bwd(*saved, ctx.chunk, g), None)
             # DTensors: the rule runs on the shards the forward ran on; u's
             # gradient sums over the batch, partial where the batch shards
             from torch.distributed.tensor import Partial, Replicate, Shard
@@ -126,9 +143,8 @@ class _WKV6(torch.autograd.Function):
                           for p, q in zip(pl, u_pl))
             return (*run_local(
                 lambda *t: wkv6_bwd(*t[:5], ctx.chunk, t[5]),
-                (*ctx.saved_tensors, g), (pl,) * 4 + (u_pl, pl),
+                (*saved, g), (pl,) * 4 + (u_pl, pl),
                 (pl,) * 4 + (du_pl,)), None)
-        return (*wkv6_bwd(*ctx.saved_tensors, ctx.chunk, g), None)
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,

@@ -63,6 +63,13 @@ Spans of the port beside the data plane's:
                                 dropped choices)
   ``moe.experts``      compute  device span inside ``moe.dispatch``: the
                                 expert bmms
+  ``wkv6.forward``     compute  device span: one WKV6 forward, K4 on CUDA
+                                (``tokens`` = B·S, ``heads``, ``chunk``);
+                                under per-layer remat twice a layer, in the
+                                forward and in the recompute inside
+                                ``train.backward``
+  ``wkv6.backward``    compute  device span: WKV6's backward rule, the vjp
+                                of the chunked plain form (same args)
   ===================  =======  ==============================================
 
 On CUDA, ``FusedTrainLoop`` also writes ``host_syncs`` into each

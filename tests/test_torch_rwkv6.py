@@ -198,6 +198,32 @@ def test_cpu_tensors_take_the_plain_wkv6_and_launch_nothing():
     assert kcommon.launches == {name: 0 for name in kcommon.KERNELS}
 
 
+def test_wkv6_spans_leave_the_values_alone():
+    """With the tracer on, the WKV6 call and rule are device spans; y and
+    every gradient are bit for bit those of a run with the tracer off."""
+    from repro_torch.obs.tracer import TRACER, disable_tracing, enable_tracing
+    rng = np.random.default_rng(11)
+    base = [t for _, t in _wkv_inputs(rng, (2, 24, 2, 16), "bfloat16", "bfloat16")]
+    g = torch.from_numpy(rng.standard_normal((2, 24, 2, 16))).to(torch.bfloat16)
+
+    def run():
+        ins = [t.clone().requires_grad_() for t in base]
+        y, _ = wkv6(*ins, 8)
+        return [y.detach()] + list(torch.autograd.grad(y, ins, g))
+
+    off = run()
+    TRACER.clear()
+    enable_tracing()
+    try:
+        on = run()
+        names = [s.name for s in TRACER.spans()]
+    finally:
+        disable_tracing()
+        TRACER.clear()
+    assert names == ["wkv6.forward", "wkv6.backward"]
+    assert all(torch.equal(a, b) for a, b in zip(off, on))
+
+
 # ---------------------------------------------------------------------------
 # Config
 # ---------------------------------------------------------------------------

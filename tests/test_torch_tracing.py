@@ -1,7 +1,8 @@
 """The port's tracer inside the program: parent links, device time and
 device counters read late, the train step's phase spans, the MoE dispatch
-spans and slot counts, the consumer's per-GET latencies and the fused
-loop's host-sync count, and the benchmark's readers of them.
+spans and slot counts, the WKV6 forward and backward spans, the consumer's
+per-GET latencies and the fused loop's host-sync count, and the benchmark's
+readers of them.
 
 CPU only (no CUDA here: ``device_s`` is None and the host-sync count is
 driven through torch's warning text); the card's half is
@@ -17,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import rwkv6_3b  # noqa: E402
 from repro_torch.core import (Consumer, ManifestStore,  # noqa: E402
                               MemoryObjectStore, MeshPosition, Namespace,
                               Producer)
@@ -38,6 +40,8 @@ MOE = ModelConfig(name="moe-trace", family="moe", num_layers=2, d_model=32,
                   num_heads=2, num_kv_heads=2, d_ff=32, vocab_size=64,
                   moe_num_experts=4, moe_top_k=2, moe_d_ff=16,
                   moe_capacity_factor=0.5, remat=True)
+#: rwkv6-3b's 2-layer smoke model, with remat
+RWKV = rwkv6_3b.SMOKE_CONFIG
 
 
 @pytest.fixture
@@ -273,6 +277,53 @@ def test_disabled_tracer_adds_no_event_no_op_and_no_sync(monkeypatch):
     assert "bool_sum" not in off
     assert on.count("bool_sum") == 2 * MOE.num_layers   # forward + recompute
     assert [o for o in on if o != "bool_sum"] == off
+
+
+def _rwkv_step():
+    params = init_params(param_specs(RWKV), seed=0, device="cpu")
+    step = make_train_step(RWKV, OptimizerConfig(), StepConfig())
+    batch = {"tokens": torch.arange(2 * 16).reshape(2, 16) * 7 % RWKV.vocab_size}
+    return step, params, init_opt_state(params), batch
+
+
+def test_wkv6_spans_in_a_train_step(tracing):
+    """Each layer's WKV6 forward opens ``wkv6.forward`` twice under remat
+    (in ``train.forward``, then as the recompute in ``train.backward``) and
+    its backward rule ``wkv6.backward`` once, in ``train.backward``; each
+    carries B·S tokens, the heads and the chunk."""
+    assert RWKV.remat
+    step, params, opt, batch = _rwkv_step()
+    step(params, opt, batch)
+    spans = TRACER.spans()
+    by_id = {s.id: s for s in spans}
+    fwd = sorted((s for s in spans if s.name == "wkv6.forward"), key=lambda s: s.t0)
+    bwd = [s for s in spans if s.name == "wkv6.backward"]
+    L = RWKV.num_layers
+    assert len(fwd) == 2 * L and len(bwd) == L
+    args = {"tokens": 2 * 16, "heads": RWKV.d_model // RWKV.rwkv_head_dim,
+            "chunk": RWKV.rwkv_chunk}
+    assert all(s.args == args and s.cat == "compute" for s in fwd + bwd)
+    assert [by_id[s.parent].name for s in fwd] == \
+        ["train.forward"] * L + ["train.backward"] * L
+    assert [by_id[s.parent].name for s in bwd] == ["train.backward"] * L
+    assert all(s.device_s is None for s in fwd + bwd)
+
+
+def test_disabled_tracer_leaves_the_wkv6_spans_out(monkeypatch):
+    """With the tracer disabled an RWKV step records nothing and touches no
+    CUDA event, sync or profiler range."""
+    disable_tracing()
+    TRACER.clear()
+
+    def refuse(*a, **k):
+        raise AssertionError("the disabled step touched the device tracing")
+
+    for name in ("Event", "synchronize"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    step, params, opt, batch = _rwkv_step()
+    step(params, opt, batch)
+    assert len(TRACER) == 0
 
 
 # ---------------------------------------------------------------------------
