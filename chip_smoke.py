@@ -404,10 +404,11 @@ TRAIN_GB, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 3
 GRANITE_TRAIN_LAYERS = 8  # of 36: 16 B a parameter of fp32 state must fit 80 GB
 RWKV_TRAIN_LAYERS = 32    # all of them
 TRAIN_OPT = dict(learning_rate=1e-4, warmup_steps=1, total_steps=10)
-# Phase 8's bounds, kernel path against plain path. The backward rules are
-# the same plain functions on both paths, so the gradients differ only
-# through the forward kernels' outputs; the forward 2-layer cuts read
-# RMS(diff) / RMS(plain) 0.005-0.009, so 5e-2 leaves about 5x.
+# Phase 8's bounds, kernel path against plain path. The backward rules but
+# K4's are the same plain functions on both paths, so the gradients differ
+# through the forward kernels' outputs and K4's backward kernel (near fp32:
+# 3xTF32 products); the forward 2-layer cuts read RMS(diff) / RMS(plain)
+# 0.005-0.009, so 5e-2 leaves about 5x.
 TRAIN_LOSS_RTOL = 1e-3
 GRAD_RMS_TOL = 5e-2
 GRAD_NORM_RTOL = 1e-2
@@ -524,7 +525,7 @@ DRYRUN_OUT = ROOT / "build" / "dryrun"
 # the forward kernels' names as the profiler lists them
 KERNEL_SYMBOLS = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "fa_fwd_kernel",
                   "decode_attention": "decode_kernel", "wkv6": "wkv6_kernel",
-                  "adamw": "adamw_"}
+                  "wkv6_bwd": "wkv6_bwd_chunks", "adamw": "adamw_"}
 
 
 def log(*a):
@@ -1020,9 +1021,77 @@ def decode_partial_check(torch, label, q, kc, vc, cur, entries):
     entries["decode_attention"][f"partial_rep{H // G}_max_err_share_of_limit"] = share
 
 
+def wkv6_grad_shares(torch, got, want, w, r, k, rtol=KERNEL_RTOL, c=1e-2):
+    """K4's backward against the plain rule, as the card tests hold it:
+    {gradient: (max |err|, the worst element's share of its limit rtol
+    |want| + c RMS of its row)}; dw as dw·w (the log-decay's cotangent,
+    which both forms divide by w) with the RMS of the summands r·dr and
+    k·dk in the absolute part, and exactly 0 wherever w < 1e-12."""
+    def rms(x):
+        return x.pow(2).mean(dim=-1, keepdim=True).sqrt()
+
+    def share(g, wt, floor):
+        if g.shape != wt.shape or not torch.isfinite(g).all():
+            raise AssertionError("wkv6 backward: a shape differs or an output is non-finite")
+        err = (g - wt).abs()
+        return float(err.max()), float((err / (rtol * wt.abs() + c * floor)
+                                        .clamp_min(1e-30)).max())
+
+    dr, dk, dv, dw, du = (x.float() for x in got)
+    pr, pk, pv, pw, pu = (x.float() for x in want)
+    wf, rf, kf = w.float(), r.float(), k.float()
+    if bool(dw[wf < 1e-12].any()) or bool(pw[wf < 1e-12].any()):
+        raise AssertionError("wkv6 backward: dw is not 0 where w < 1e-12")
+    return {"dr": share(dr, pr, rms(pr)), "dk": share(dk, pk, rms(pk)),
+            "dv": share(dv, pv, rms(pv)),
+            "dw": share(dw * wf, pw * wf, rms(pw * wf) + rms(rf * pr) + rms(kf * pk)),
+            "du": share(du, pu, rms(pu))}
+
+
+def kernel_wkv6_backward(torch, flush, randn, entries, r, k, v, w, u):
+    """K4's backward at rwkv6-3b's training shape against the plain rule
+    (checked, with a control: u zeroed), timed with L2 flushed beside its
+    bound (r, k, v, w and the cotangent read, the four gradients written,
+    u read and du written) and the plain rule's time."""
+    from repro_torch.kernels.wkv6.ops import wkv6_bwd_kernel, wkv6_bwd_plain
+
+    B, S, H, dh = r.shape
+    g = randn(B, S, H, dh)
+    got = wkv6_bwd_kernel(r, k, v, w, u, g)
+    want = wkv6_bwd_plain(r, k, v, w, u, RWKV_CHUNK, g)
+    shares = wkv6_grad_shares(torch, got, want, w, r, k)
+    worst = max(sh for _, sh in shares.values())
+    if worst > 1.0:
+        raise AssertionError(f"wkv6 backward: {shares}")
+    bad = wkv6_grad_shares(torch, wkv6_bwd_kernel(r, k, v, w, torch.zeros_like(u), g),
+                           want, w, r, k)["dr"][1]
+    if bad <= 1.0:
+        raise AssertionError(f"wkv6 backward: the u-zeroed control passed ({bad:.2f})")
+    log(f"  control wkv6 backward dr, u zeroed: refused, worst element at {bad:.2f}x its limit")
+    ms = time_ms(torch, lambda: wkv6_bwd_kernel(r, k, v, w, u, g), flush, 20)
+    plain = time_ms(torch, lambda: wkv6_bwd_plain(r, k, v, w, u, RWKV_CHUNK, g), flush, 5)
+    nbytes = 9 * r.numel() * r.element_size() + 2 * u.numel() * 4
+    # the chunked backward's products a chunk: the two state sweeps and the
+    # inter-chunk and state terms of dv, dr, dk (2 C dh^2 each), dA, and A,
+    # A^T gy and the intra-chunk terms of dr and dk over the lower triangle
+    chunks = B * H * -(-S // WKV_CHUNK)
+    flops = chunks * (10.0 * WKV_CHUNK * dh * dh + 5.0 * WKV_CHUNK ** 2 * dh)
+    b_ms, b_by = bound(nbytes, flops, TF32_FLOPS)
+    log(f"wkv6 backward r/k/v/w/gy{(B, S, H, dh)} bf16: "
+        + ", ".join(f"{n} max|err| {e:.3e} ({sh:.2f} of limit)" for n, (e, sh) in shares.items())
+        + f"  kernel {ms:.4f} ms  plain rule {plain:.4f} ms ({plain / ms:.1f}x)  bound "
+        f"{b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at TF32_FLOPS)"
+        f"  share of bound {b_ms / ms:.1%}")
+    entries["wkv6"]["backward"] = dict(
+        source="src/repro_torch/csrc/wkv6.cu (wkv6_bwd)",
+        shape=f"r/k/v/w/gy ({B}, {S}, {H}, {dh}) bf16, u ({H}, {dh}) fp32",
+        max_err_share_of_limit={n: sh for n, (_, sh) in shares.items()},
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+
+
 def kernel_wkv6(torch, F, flush, randn, entries):
     """K4 WKV6 at rwkv6-3b's prefill and training shapes. Timed through the
-    launcher ``wkv6_fwd``."""
+    launcher ``wkv6_fwd``; then K4's backward at the training shape."""
     from repro_torch.kernels.wkv6.ops import wkv6, wkv6_fwd
     from repro_torch.kernels.wkv6.ref import wkv6_chunked
 
@@ -1076,6 +1145,9 @@ def kernel_wkv6(torch, F, flush, randn, entries):
             check_rejects(torch, "wkv6 prefill state, last token's k zeroed",
                           wkv6(r, k_bad, v, w, u, RWKV_CHUNK)[1], pst,
                           rtol=WKV_STATE_TOL, c=WKV_STATE_TOL)
+        if label == "train":
+            train = (r, k, v, w, u)
+    kernel_wkv6_backward(torch, flush, randn, entries, *train)
 
 
 def kernel_adamw(torch, F, flush, randn, entries):
@@ -1360,7 +1432,8 @@ def dense_launches(cfg, steps):
     prefill, K3 once a layer a step."""
     return {"rmsnorm": (2 * cfg.num_layers + 1) * (1 + steps),
             "flash_attention": cfg.num_layers,
-            "decode_attention": cfg.num_layers * steps, "wkv6": 0, "adamw": 0}
+            "decode_attention": cfg.num_layers * steps, "wkv6": 0, "wkv6_bwd": 0,
+            "adamw": 0}
 
 
 def rwkv_launches(cfg, steps):
@@ -1369,7 +1442,7 @@ def rwkv_launches(cfg, steps):
     (decode steps the recurrence as plain tensor code)."""
     norms = 3 * cfg.num_layers + 1
     return {"rmsnorm": norms * (1 + steps), "flash_attention": 0, "decode_attention": 0,
-            "wkv6": cfg.num_layers, "adamw": 0}
+            "wkv6": cfg.num_layers, "wkv6_bwd": 0, "adamw": 0}
 
 
 def hybrid_launches(cfg, steps):
@@ -1379,7 +1452,7 @@ def hybrid_launches(cfg, steps):
     groups = cfg.num_layers // cfg.attn_every
     norms = 2 * cfg.num_layers + 2 * groups + 1
     return {"rmsnorm": norms * (1 + steps), "flash_attention": groups,
-            "decode_attention": groups * steps, "wkv6": 0, "adamw": 0}
+            "decode_attention": groups * steps, "wkv6": 0, "wkv6_bwd": 0, "adamw": 0}
 
 
 def phase_serve_direct(torch, kcommon, cfg, expected, prefix=0):
@@ -1698,8 +1771,9 @@ def expected_train_launches(cfg):
     the layers, once. The hybrid nests its remat as the reference does: a
     Mamba2 layer inside a group of ``attn_every`` runs forward three times
     (the forward, the group's recompute, its own recompute), the shared
-    block and a tail layer twice. AdamW is K5 over the fp32 leaves: two
-    launches for each table of leaves and one for the clip scale."""
+    block and a tail layer twice. K4's backward runs once a layer. AdamW
+    is K5 over the fp32 leaves: two launches for each table of leaves and
+    one for the clip scale."""
     import math
 
     from repro_torch.kernels.adamw.ops import launch_count
@@ -1707,7 +1781,7 @@ def expected_train_launches(cfg):
     from repro_torch.models.common import tree_leaves
     numels = [math.prod(s.shape) for s in tree_leaves(param_specs(cfg))]
     want = {"rmsnorm": 1, "flash_attention": 0, "decode_attention": 0, "wkv6": 0,
-            "adamw": launch_count([numels])}
+            "wkv6_bwd": 0, "adamw": launch_count([numels])}
     if cfg.family == "hybrid":
         groups = cfg.num_layers // cfg.attn_every
         tail = cfg.num_layers - groups * cfg.attn_every
@@ -1718,6 +1792,8 @@ def expected_train_launches(cfg):
                  else {"rmsnorm": 2, "flash_attention": 1})
     for name, n in per_layer.items():
         want[name] += 2 * n * cfg.num_layers
+    if cfg.family == "rwkv":
+        want["wkv6_bwd"] = cfg.num_layers
     return want
 
 
@@ -1869,7 +1945,8 @@ def phase_train(torch, kcommon, label, cfg, prefix=0):
     step_ms = start.elapsed_time(end)
     parts = {name: sum(s.elapsed_time(e) for s, e in ev) for name, ev in events.items()}
     parts.update({f"{k} forward kernel": sum(t for t, key in rows if sym in key) / 1e3
-                  for k, sym in KERNEL_SYMBOLS.items() if want[k] and k != "adamw"})
+                  for k, sym in KERNEL_SYMBOLS.items()
+                  if want[k] and k not in ("adamw", "wkv6_bwd")})
     log(f"{label} train step, device time by part (CUDA events around each backward rule "
         f"and AdamW; the profiler's kernel lines for the forward kernels): step {step_ms:.2f} ms; "
         + "; ".join(f"{k} {v:.2f} ms = {v / step_ms:.1%}" for k, v in parts.items()))
@@ -3761,7 +3838,7 @@ def phase_card_check(torch, kcommon, paths, smi, free):
             fn()
             torch.cuda.synchronize()
         p = analyze_profile(prof)
-        got = {k: p.launches(KERNEL_SYMBOLS[k]) for k in kcommon.KERNELS}
+        got = {k: p.launches(KERNEL_SYMBOLS[k]) for k in kcommon.LAUNCHES}
         markers = p.launches("spin_kernel")
         counts = dict(kcommon.launches)
         missed = {k: want[k] - got[k] for k in want}

@@ -7,9 +7,10 @@ at the repository root, the hash covering the source, the shared headers
 loaded with ``ctypes``: no PyTorch headers are compiled, so a build takes
 seconds. Building happens at first use (or in ``build``), never at import.
 
-``launches`` counts, per kernel, the launches made by its wrapper; a run
-resets it with ``reset_launches`` and reads it afterwards to show that the
-path went through the kernels.
+``launches`` counts, per kernel, the launches made by its wrapper (keys
+``LAUNCHES``: one a source, and K4's backward, ``wkv6_bwd``, beside its
+forward); a run resets it with ``reset_launches`` and reads it afterwards
+to show that the path went through the kernels.
 
 Each kernel's forward but K5's is an operator of the ``repro_torch`` library
 (``define_op``): its CPU and CUDA implementation is the wrapper (plain
@@ -38,13 +39,16 @@ from typing import Callable, Dict, Iterable, List
 import torch
 
 KERNELS = ("rmsnorm", "flash_attention", "decode_attention", "wkv6", "adamw")
+#: the launch counters: a source's kernel, and K4's backward (``csrc/wkv6.cu``)
+LAUNCHES = ("rmsnorm", "flash_attention", "decode_attention", "wkv6", "wkv6_bwd",
+            "adamw")
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-launches: Dict[str, int] = {name: 0 for name in KERNELS}
+launches: Dict[str, int] = {name: 0 for name in LAUNCHES}
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 LIB = torch.library.Library("repro_torch", "FRAGMENT")

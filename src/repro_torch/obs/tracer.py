@@ -68,8 +68,11 @@ Spans of the port beside the data plane's:
                                 under per-layer remat twice a layer, in the
                                 forward and in the recompute inside
                                 ``train.backward``
-  ``wkv6.backward``    compute  device span: WKV6's backward rule, the vjp
-                                of the chunked plain form (same args)
+  ``wkv6.backward``    compute  device span: WKV6's backward, K4's backward
+                                kernel on CUDA, the vjp of the chunked plain
+                                form elsewhere (same args, and
+                                ``kernel_tokens``: the B·S the kernel took,
+                                0 where the plain rule ran)
   ===================  =======  ==============================================
 
 On CUDA, ``FusedTrainLoop`` also writes ``host_syncs`` into each

@@ -225,7 +225,7 @@ def test_forward_matches_jax(dtype, prefix):
     _, tcfg, _, tparams = _configs(dtype)
     kcommon.reset_launches()
     tl, taux = forward(tcfg, tparams, _torch(_batch(tcfg, prefix)))
-    assert kcommon.launches == {name: 0 for name in kcommon.KERNELS}
+    assert kcommon.launches == {name: 0 for name in kcommon.LAUNCHES}
     assert tl.shape == (B, prefix + S, tcfg.num_codebooks, tcfg.vocab_size)
     assert tl.dtype == tcfg.cdtype
     assert_allclose(_np(tl), _jax_logits(dtype, prefix), **_tol(dtype))

@@ -49,7 +49,8 @@ from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E40
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_fwd  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
-from repro_torch.kernels.wkv6.ops import wkv6  # noqa: E402
+from repro_torch.kernels.wkv6.ops import (wkv6, wkv6_bwd,  # noqa: E402
+                                          wkv6_bwd_kernel, wkv6_bwd_plain)
 from repro_torch.kernels.wkv6.ref import wkv6_chunked  # noqa: E402
 from repro_torch.configs.rwkv6_3b import SMOKE_CONFIG as RWKV_SMOKE  # noqa: E402
 from repro_torch.models import (ModelConfig, decode_step,  # noqa: E402
@@ -344,13 +345,16 @@ def test_decode_attention_refuses_a_rep_outside_reps(cuda):
 
 def _wkv_inputs(gen, B, S, H, dh, dtype, device, decay="model"):
     """r, k, v unit normal; w from the model's exp(-exp(clip(N, -8, 4))), or
-    every decay at the 1e-12 clamp, or all 1 - 2**-8 (nearly none); u ~ 0.3
-    N; all but u rounded to ``dtype``."""
+    every decay at the 1e-12 clamp, or all 1 - 2**-8 (nearly none), or the
+    clip's two edges mixed (exp(-exp(4)) ~ 1.9e-24, below the clamp, and
+    exp(-exp(-8))); u ~ 0.3 N; all but u rounded to ``dtype``."""
     r, k, v = (_randn(gen, (B, S, H, dh), dtype, device) for _ in range(3))
     n = torch.randn((B, S, H, dh), generator=gen, device=device)
+    edges = torch.where(n < 0, torch.full_like(n, 4.0), torch.full_like(n, -8.0))
     w = {"model": torch.exp(-torch.exp(n.clamp(-8.0, 4.0))),
          "clamped": torch.full_like(n, 1e-12),
-         "nearly none": torch.full_like(n, 1.0 - 2.0 ** -8)}[decay].to(dtype)
+         "nearly none": torch.full_like(n, 1.0 - 2.0 ** -8),
+         "clip edges": torch.exp(-torch.exp(edges))}[decay].to(dtype)
     u = 0.3 * torch.randn((H, dh), generator=gen, device=device)
     return r, k, v, w, u
 
@@ -401,6 +405,126 @@ def test_wkv6_refuses_inputs_it_does_not_take(cuda):
         wkv6(r, r, r, r, torch.zeros(2, 8, device=cuda), 64)
 
 
+def wkv6_grad_shares(got, want, w, r, k, rtol=KERNEL_RTOL, c=1e-2):
+    """The worst element's share of its limit, gradient by gradient, for
+    (dr, dk, dv, dw, du) ``got`` against ``want``: rtol |want| + c RMS of
+    its row (the last axis). dw is held as dw·w, the log-decay's cotangent,
+    with the summands' RMS (r·dr and k·dk of ``want``) in the absolute part:
+    both backward forms take it from sums that cancel within a chunk and
+    divide by w, which magnifies that rounding where w is tiny; and dw must
+    be exactly 0 wherever w < 1e-12 in both."""
+    def rms(x):
+        return x.pow(2).mean(dim=-1, keepdim=True).sqrt()
+
+    def share(g, wt, floor):
+        assert g.shape == wt.shape and bool(torch.isfinite(g).all())
+        limit = rtol * wt.abs() + c * floor
+        return float(((g - wt).abs() / limit.clamp_min(1e-30)).max())
+
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+    dr, dk, dv, dw, du = (x.float() for x in got)
+    pr, pk, pv, pw, pu = (x.float() for x in want)
+    wf, rf, kf = w.float(), r.float(), k.float()
+    clamped = wf < 1e-12
+    assert not bool(dw[clamped].any()) and not bool(pw[clamped].any())
+    summands = rms(pw * wf) + rms(rf * pr) + rms(kf * pk)
+    return {"dr": share(dr, pr, rms(pr)), "dk": share(dk, pk, rms(pk)),
+            "dv": share(dv, pv, rms(pv)), "dw": share(dw * wf, pw * wf, summands),
+            "du": share(du, pu, rms(pu))}
+
+
+@pytest.mark.parametrize("B,S,H,dh,dtype,decay", [
+    (4, 1024, 8, 64, torch.bfloat16, "model"),   # the cell's length
+    (2, 200, 8, 64, torch.bfloat16, "model"),
+    (3, 45, 5, 64, torch.bfloat16, "model"),     # S fills no chunk
+    (1, 1, 1, 64, torch.bfloat16, "model"),      # one token
+    (2, 33, 4, 16, torch.bfloat16, "model"),     # the smoke model's head_dim
+    (2, 200, 4, 16, torch.bfloat16, "model"),
+    *[(2, S, 4, 64, torch.bfloat16, "model") for S in (15, 16, 17, 63, 64, 65, 129)],
+    (2, 129, 4, 64, torch.bfloat16, "clamped"),
+    (2, 129, 4, 64, torch.bfloat16, "nearly none"),
+    (2, 129, 4, 64, torch.bfloat16, "clip edges"),
+    (1, 70, 2, 64, torch.float32, "model"),
+    (2, 200, 4, 64, torch.float32, "nearly none"),
+    (2, 200, 4, 16, torch.float32, "clip edges"),
+])
+def test_wkv6_backward_kernel_matches_plain(cuda, B, S, H, dh, dtype, decay):
+    """K4's backward against the plain rule (``wkv6_chunked``'s vjp) on the
+    same inputs and cotangent, at the card tests' limits; negative
+    controls: u zeroed misses dr, and the cotangent's last token zeroed
+    misses dv."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    r, k, v, w, u = _wkv_inputs(gen, B, S, H, dh, dtype, cuda, decay)
+    g = _randn(gen, (B, S, H, dh), dtype, cuda)
+    kcommon.reset_launches()
+    got = wkv6_bwd(r, k, v, w, u, 64, g)
+    assert kcommon.launches["wkv6_bwd"] == 1
+    want = wkv6_bwd_plain(r, k, v, w, u, 64, g)
+    shares = wkv6_grad_shares(got, want, w, r, k)
+    assert max(shares.values()) <= 1.0, shares
+    bad_u = wkv6_bwd_kernel(r, k, v, w, torch.zeros_like(u), g)
+    assert wkv6_grad_shares(bad_u, want, w, r, k)["dr"] > 1.0
+    if S > 1:
+        g_bad = g.clone()
+        g_bad[:, -1] = 0
+        bad = wkv6_bwd_kernel(r, k, v, w, u, g_bad)
+        assert wkv6_grad_shares(bad, want, w, r, k)["dv"] > 1.0
+
+
+def test_wkv6_backward_kernel_runs_repeat_bit_for_bit(cuda):
+    """Two runs on the same inputs give the same bits, du's sum over the
+    batch included (no atomics)."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    ins = _wkv_inputs(gen, 4, 1024, 40, 64, torch.bfloat16, cuda)
+    g = _randn(gen, (4, 1024, 40, 64), torch.bfloat16, cuda)
+    one, two = wkv6_bwd_kernel(*ins, g), wkv6_bwd_kernel(*ins, g)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+def test_wkv6_backward_kernel_takes_a_non_contiguous_cotangent(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    ins = _wkv_inputs(gen, 2, 130, 4, 64, torch.bfloat16, cuda)
+    g = _randn(gen, (2, 4, 130, 64), torch.bfloat16, cuda).transpose(1, 2)
+    assert not g.is_contiguous()
+    got = wkv6_bwd_kernel(*ins, g)
+    want = wkv6_bwd_kernel(*ins, g.contiguous())
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_wkv6_backward_kernel_makes_no_host_sync(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    ins = _wkv_inputs(gen, 2, 200, 8, 64, torch.bfloat16, cuda)
+    g = _randn(gen, (2, 200, 8, 64), torch.bfloat16, cuda)
+    wkv6_bwd_kernel(*ins, g)   # loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wkv6_bwd(*ins, 64, g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_wkv6_backward_kernel_refuses_what_it_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    r, k, v, w, u = _wkv_inputs(gen, 1, 8, 2, 64, torch.bfloat16, cuda)
+    g = torch.zeros_like(r)
+    with pytest.raises(ValueError):        # fp16
+        wkv6_bwd_kernel(*(t.half() for t in (r, k, v, w)), u, g.half())
+    with pytest.raises(ValueError):        # a cotangent of another dtype
+        wkv6_bwd_kernel(r, k, v, w, u, g.float())
+    with pytest.raises(ValueError):        # a cotangent of another shape
+        wkv6_bwd_kernel(r, k, v, w, u, g[:, :4])
+    with pytest.raises(ValueError):        # u not fp32
+        wkv6_bwd_kernel(r, k, v, w, u.bfloat16(), g)
+    r8 = torch.zeros(1, 8, 2, 8, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):        # head_dim 8
+        wkv6_bwd_kernel(r8, r8, r8, r8, torch.zeros(2, 8, device=cuda), r8)
+    with pytest.raises(ValueError):        # a cotangent on the CPU
+        wkv6_bwd(r, k, v, w, u, 64, g.cpu())
+
+
 def test_kernels_refuse_inputs_they_do_not_take(cuda):
     q = torch.zeros(1, 4, 2, 64, dtype=torch.float16, device=cuda)
     with pytest.raises(ValueError):
@@ -443,7 +567,7 @@ def test_model_on_the_card_launches_the_kernels_and_matches_the_cpu(cuda):
     assert kcommon.launches == {"rmsnorm": (2 * L + 1) * 4,
                                 "flash_attention": L,
                                 "decode_attention": 3 * L,
-                                "wkv6": 0, "adamw": 0}
+                                "wkv6": 0, "wkv6_bwd": 0, "adamw": 0}
     for a, b in zip(out["cuda"], out["cpu"]):
         _assert_close(a.cpu(), b)
 
@@ -528,8 +652,9 @@ def test_moe_model_on_the_card_launches_the_kernels_and_matches_the_cpu(
           f"call: {flips}")
     assert len(flips) == 4 * L
     assert counts["cuda"] == {"rmsnorm": (2 * L + 1) * 4, "flash_attention": L,
-                              "decode_attention": 3 * L, "wkv6": 0, "adamw": 0}
-    assert counts["cpu"] == {name: 0 for name in kcommon.KERNELS}
+                              "decode_attention": 3 * L, "wkv6": 0,
+                              "wkv6_bwd": 0, "adamw": 0}
+    assert counts["cpu"] == {name: 0 for name in kcommon.LAUNCHES}
     for a, b in zip(out["cuda"], out["cpu"]):
         _assert_close(a.cpu(), b)
 
@@ -557,9 +682,10 @@ def test_rwkv6_on_the_card_launches_the_kernels_and_matches_the_cpu(cuda):
             out[dev] = steps + [state[k] for k in sorted(state)]
             counts[dev] = dict(kcommon.launches)
     L = cfg.num_layers
-    assert counts["cpu"] == {name: 0 for name in kcommon.KERNELS}
+    assert counts["cpu"] == {name: 0 for name in kcommon.LAUNCHES}
     assert counts["cuda"] == {"rmsnorm": (3 * L + 1) * 4, "flash_attention": 0,
-                              "decode_attention": 0, "wkv6": L, "adamw": 0}
+                              "decode_attention": 0, "wkv6": L,
+                              "wkv6_bwd": 0, "adamw": 0}
     for a, b in zip(out["cuda"], out["cpu"]):
         _assert_close(a.cpu(), b)
 
@@ -597,9 +723,10 @@ def test_hybrid_on_the_card_launches_the_kernels_and_matches_the_cpu(cuda):
             out[dev] = steps + [state[k] for k in sorted(state)]
             counts[dev] = dict(kcommon.launches)
     norms = 2 * cfg.num_layers + 2 + 1  # Mamba2 layers, shared block, final
-    assert counts["cpu"] == {name: 0 for name in kcommon.KERNELS}
+    assert counts["cpu"] == {name: 0 for name in kcommon.LAUNCHES}
     assert counts["cuda"] == {"rmsnorm": norms * 4, "flash_attention": 1,
-                              "decode_attention": 3, "wkv6": 0, "adamw": 0}
+                              "decode_attention": 3, "wkv6": 0,
+                              "wkv6_bwd": 0, "adamw": 0}
     for a, b in zip(out["cuda"], out["cpu"]):
         _assert_close(a.cpu(), b)
 
@@ -647,9 +774,10 @@ def test_audio_model_on_the_card_launches_the_kernels_and_matches_the_cpu(cuda):
                 steps.append(logits)
             out[dev], counts[dev] = steps, dict(kcommon.launches)
     L = cfg.num_layers
-    assert counts["cpu"] == {name: 0 for name in kcommon.KERNELS}
+    assert counts["cpu"] == {name: 0 for name in kcommon.LAUNCHES}
     assert counts["cuda"] == {"rmsnorm": (2 * L + 1) * 4, "flash_attention": L,
-                              "decode_attention": 3 * L, "wkv6": 0, "adamw": 0}
+                              "decode_attention": 3 * L, "wkv6": 0,
+                              "wkv6_bwd": 0, "adamw": 0}
     assert out["cuda"][0].shape == (2, cfg.num_codebooks, cfg.vocab_size)
     for a, b in zip(out["cuda"], out["cpu"]):
         _assert_close(a.cpu(), b)
@@ -689,10 +817,10 @@ def test_hybrid_train_path_launches_the_kernels_and_matches_the_cpu(cuda,
         out[dev, dtype] = (loss.cpu(), dict(kcommon.launches),
                            [g.cpu() for g in tree_leaves(grads)])
     grouped, shared, tail = (3, 2, 2) if remat else (1, 1, 1)
-    want = {name: 0 for name in kcommon.KERNELS}
+    want = {name: 0 for name in kcommon.LAUNCHES}
     want["rmsnorm"] = 2 * (grouped * 2 + shared + tail) + 1
     want["flash_attention"] = shared
-    assert out["cpu", "bfloat16"][1] == {name: 0 for name in kcommon.KERNELS}
+    assert out["cpu", "bfloat16"][1] == {name: 0 for name in kcommon.LAUNCHES}
     assert out["cuda", "bfloat16"][1] == want
     _assert_close(out["cuda", "bfloat16"][0], out["cpu", "bfloat16"][0])
     for g, c, truth in zip(out["cuda", "bfloat16"][2], out["cpu", "bfloat16"][2],
@@ -705,12 +833,15 @@ def test_hybrid_train_path_launches_the_kernels_and_matches_the_cpu(cuda,
 # Training: the autograd Functions' gradients and the train path's launches
 # ---------------------------------------------------------------------------
 
-def _function_vs_plain(fn, plain, inputs, gen, launches, tols):
+def _function_vs_plain(fn, plain, inputs, gen, launches, tols,
+                       backward_launches=0, grads_close=None):
     """``fn`` (the kernel's Function) against ``plain`` on the same inputs,
     both recording grads: each output within its (c, rtol) of ``tols``, as
     the kernel tests hold it; then the grads of one random cotangent of the
-    first output, which must be bit-identical. Asserts the kernel launched
-    ``launches`` times."""
+    first output, which must be bit-identical, or pass ``grads_close(got,
+    want)`` where a kernel computes them. Asserts the kernels launched
+    ``launches`` times in the forward, ``backward_launches`` more in the
+    backward."""
     kin = [t.clone().requires_grad_(t.is_floating_point()) for t in inputs]
     pin = [t.clone().requires_grad_(t.is_floating_point()) for t in inputs]
     kcommon.reset_launches()
@@ -726,10 +857,13 @@ def _function_vs_plain(fn, plain, inputs, gen, launches, tols):
                     device=kout[0].device).to(kout[0].dtype)
     kout[0].backward(g)
     pout[0].backward(g)
-    assert sum(kcommon.launches.values()) == launches
+    assert sum(kcommon.launches.values()) == launches + backward_launches
     for a, b in zip(kin, pin):
         if a.requires_grad:
-            assert a.grad.dtype == a.dtype and torch.equal(a.grad, b.grad)
+            assert a.grad.dtype == a.dtype
+            assert grads_close is not None or torch.equal(a.grad, b.grad)
+    if grads_close is not None:
+        grads_close([a.grad for a in kin], [b.grad for b in pin])
 
 
 @pytest.mark.parametrize("shape", [(4096, 4096), (4096, 2560)])
@@ -761,13 +895,21 @@ def test_flash_attention_function_grads_equal_plain_autograd(cuda, B, S, H,
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_wkv6_function_grads_equal_plain_autograd(cuda, dtype):
-    """rwkv6-3b's 40 heads of 64 over 1024 tokens."""
+    """rwkv6-3b's 40 heads of 64 over 1024 tokens: the forward through K4,
+    the grads through K4's backward (one launch), within the backward
+    kernel tests' limits of autograd through the plain form."""
     gen = torch.Generator(device=cuda).manual_seed(6)
     ins = _wkv_inputs(gen, 2, 1024, 40, 64, dtype, cuda)
+
+    def close(got, want):
+        shares = wkv6_grad_shares(got, want, ins[3], ins[0], ins[1])
+        assert max(shares.values()) <= 1.0, shares
+
     _function_vs_plain(lambda *a: wkv6(*a, 64),
                        lambda *a: wkv6_chunked(*a, 64), ins, gen, launches=1,
                        tols=[(1e-2, KERNEL_RTOL),
-                             (WKV_STATE_TOL, WKV_STATE_TOL)])
+                             (WKV_STATE_TOL, WKV_STATE_TOL)],
+                       backward_launches=1, grads_close=close)
 
 
 def test_training_refuses_what_the_kernels_refuse(cuda):
@@ -814,6 +956,7 @@ def test_train_path_launches_the_kernels_and_matches_the_cpu(cuda, family,
         cfg = RWKV_SMOKE
         per_layer = {"rmsnorm": 3, "wkv6": 1}
     cfg = cfg.replace(remat=remat)
+    backward = {"wkv6_bwd": cfg.num_layers} if family == "rwkv" else {}
     params = init_params(param_specs(cfg), seed=0, device="cpu")
     if family != "audio":
         batch["tokens"] = torch.arange(2 * 24).reshape(2, 24) * 7 % cfg.vocab_size
@@ -826,11 +969,12 @@ def test_train_path_launches_the_kernels_and_matches_the_cpu(cuda, family,
         assert all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
         out[dev] = (loss, dict(kcommon.launches))
     times = 2 if remat else 1
-    want = {name: 0 for name in kcommon.KERNELS}
+    want = {name: 0 for name in kcommon.LAUNCHES}
     for name, n in per_layer.items():
         want[name] = times * n * cfg.num_layers
     want["rmsnorm"] += 1  # the final norm, outside the layers
-    assert out["cpu"][1] == {name: 0 for name in kcommon.KERNELS}
+    want.update(backward)  # K4's backward: once a layer, remat or not
+    assert out["cpu"][1] == {name: 0 for name in kcommon.LAUNCHES}
     assert out["cuda"][1] == want
     _assert_close(out["cuda"][0].cpu(), out["cpu"][0])
 
@@ -1315,7 +1459,7 @@ def test_adamw_update_on_the_card_takes_k5_and_equals_the_plain_loop(cuda):
             params, state, m = adamw_update(_OPT, params, grads, state)
         finally:
             torch.cuda.set_sync_debug_mode(mode)
-        assert kcommon.launches == {k: 3 * (k == "adamw") for k in kcommon.KERNELS}
+        assert kcommon.launches == {k: 3 * (k == "adamw") for k in kcommon.LAUNCHES}
         adamw_plain(_OPT, list(zip(*(tree_leaves(x) for x in
                                      (want, grads, ref["m"], ref["v"])))),
                     clip_scale(_OPT, m["grad_norm"]), *_step_scalars(_OPT, step))
@@ -1442,7 +1586,7 @@ def test_each_operator_launches_its_kernel(cuda):
         kcommon.reset_launches()
         op(*args)
         torch.cuda.synchronize()
-        assert kcommon.launches == {k: int(k == name) for k in kcommon.KERNELS}
+        assert kcommon.launches == {k: int(k == name) for k in kcommon.LAUNCHES}
 
 
 def test_each_operators_fake_and_flops_agree_with_its_launch(cuda):

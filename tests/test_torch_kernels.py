@@ -155,7 +155,7 @@ def test_cpu_tensors_take_plain_versions_and_launch_nothing():
     rmsnorm(x, w)
     flash_attention(q, k, k, True)
     decode_attention(q[:, 0], k, k, 8)
-    assert kcommon.launches == {name: 0 for name in kcommon.KERNELS}
+    assert kcommon.launches == {name: 0 for name in kcommon.LAUNCHES}
 
 
 @pytest.mark.parametrize("device", ["meta"])

@@ -308,7 +308,7 @@ def test_forward_matches_jax():
     tokens = _tokens(tcfg.vocab_size)
     kcommon.reset_launches()
     tl, taux = forward(tcfg, tparams, {"tokens": torch.from_numpy(tokens)})
-    assert kcommon.launches == {name: 0 for name in kcommon.KERNELS}
+    assert kcommon.launches == {name: 0 for name in kcommon.LAUNCHES}
     assert tl.shape == (B, S, tcfg.vocab_size) and tl.dtype == tcfg.cdtype
     assert_allclose(_np(tl), _jax_logits("float32"), **_tol("float32"))
     assert float(taux) == 0.0

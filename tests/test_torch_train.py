@@ -226,7 +226,7 @@ def test_adamw_on_cpu_tensors_takes_the_plain_loop_and_launches_nothing():
     state = init_opt_state(params)
     kcommon.reset_launches()
     got, new_state, m = adamw_update(cfg, params, grads, state)
-    assert kcommon.launches == {name: 0 for name in kcommon.KERNELS}
+    assert kcommon.launches == {name: 0 for name in kcommon.LAUNCHES}
     assert int(new_state["step"]) == 1
     ref_state = init_opt_state(want)
     t = torch.tensor(1.0)
@@ -389,7 +389,7 @@ def test_loss_and_grads_match_jax(arch):
     kcommon.reset_launches()
     loss, metrics, grads = loss_and_grads(tcfg, tparams,
                                           {"tokens": torch.from_numpy(tokens)})
-    assert kcommon.launches == {name: 0 for name in kcommon.KERNELS}
+    assert kcommon.launches == {name: 0 for name in kcommon.LAUNCHES}
     assert_allclose(float(loss), float(jloss), rtol=1e-5)
     assert_allclose(float(metrics["ce_loss"]), float(jm["ce_loss"]), rtol=1e-5)
     assert float(metrics["aux_loss"]) == float(jm["aux_loss"]) == 0.0
